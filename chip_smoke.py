@@ -6,21 +6,42 @@
 Phases (each raises on failure):
   1. device: a CUDA device is required; print the card's name and power
      limit as nvidia-smi reports them;
-  2. build: compile and load the CUDA kernels from ``csrc/`` (nvcc);
+  2. build: compile and load the CUDA kernels from ``csrc/`` (nvcc, one
+     process per source, in parallel);
   3. kernel B1 (batched Gauss–Jordan) against its plain PyTorch version
      at w in {4, 8, 13, 24} and N in {1024, 131072}, float32, within
      rtol 1e-4 / atol 1e-6; kernel and plain times (CUDA events, median
      of 20);
-  4. the main path through the entry point
+  3b. kernel B2 (DIA SpMV) against its plain PyTorch version on
+     ``poisson_dia`` at 512^2, 128^3 and 256^3, on the 13-band halves
+     (c_up, c_low) of a 128^3 structured FSAI factor and on the Galerkin
+     coarse operators of the 128^3 scaling operator, float32, within
+     |kernel - plain| <= 1e-6 + 1e-5 |plain|; kernel and plain times
+     (CUDA events, median of 20); the SpMV section's cold and resident
+     GB/s and HBM share;
+  4. the per-case main path through the entry point
      (``python -m deeppreconditioning_tpu_torch.bench``'s ``run``): 500
      sludge-pattern cases from seed 69420, the 100-case test split, the
      flagship NeuralFSAI checkpoint, vanilla / jacobi / fsai / learned.
-     Requires 100% success, B1 launched once per fsai/learned setup,
-     per-technique mean iterations within 1% of the JAX reference
+     Requires 100% success, B1 launched once per fsai/learned setup, no
+     plain version run on the card, per-technique mean iterations within
+     1% of the JAX reference
      (``tests/fixtures/torch_port/percase_iterations.json``) and per-case
      |delta iterations| <= 2; the first case's fsai and learned M on the
      card agree with the port's CPU float64 path to 1e-4 (relative to
      max |M|);
+  4b. the structured-grid scaling path through its entry point
+     (``python -m deeppreconditioning_tpu_torch.bench.scaling``'s
+     ``run_scaling``) at 64^3 and 128^3: vanilla, jacobi, fsai, learned,
+     gmg_jacobi, gmg_learned.  Requires every technique converged,
+     iterations against the JAX reference
+     (``tests/fixtures/torch_port/scaling_iterations.json``: vanilla
+     within 5%, the others within max(2, 2%)), no safeguard fallback for
+     learned, B2 launched by every technique, B1 launched n_pad / 2^18
+     times per structured setup (fsai, learned, gmg_learned), no plain
+     version run on the card, and the reference's CSV header; the 64^3
+     learned factor and q on the card agree with the port's CPU float64
+     path to 1e-4 (relative to max |bands|);
   5. the card line, one JSON line of kernel records, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -51,13 +72,30 @@ from deeppreconditioning_tpu_torch.bench.suite import (  # noqa: E402
     TECHNIQUES,
     BenchmarkSuite,
 )
+from deeppreconditioning_tpu_torch.bench import scaling  # noqa: E402
+from deeppreconditioning_tpu_torch.bench.spmv import (  # noqa: E402
+    spmv_operators,
+    spmv_section,
+)
 from deeppreconditioning_tpu_torch.models.neural_fsai import (  # noqa: E402
     neural_fsai_from_checkpoint,
+)
+from deeppreconditioning_tpu_torch.ops.dia_spmv import (  # noqa: E402
+    dia_matvec,
 )
 from deeppreconditioning_tpu_torch.ops.gauss_jordan import (  # noqa: E402
     masked_gauss_jordan,
     masked_gauss_jordan_torch,
 )
+from deeppreconditioning_tpu_torch.ops.gmg import (  # noqa: E402
+    galerkin_coarse_dia,
+)
+from deeppreconditioning_tpu_torch.ops.structured_fsai import (  # noqa: E402
+    CHUNK,
+    build_structured_plan,
+    structured_setup,
+)
+from deeppreconditioning_tpu_torch.sparse.dia import pad_rows  # noqa: E402
 from deeppreconditioning_tpu_torch.train.checkpoint import (  # noqa: E402
     load_checkpoint,
 )
@@ -74,6 +112,20 @@ GJ_RTOL, GJ_ATOL = 1e-4, 1e-6
 M_RTOL = 1e-4  # card float32 setup vs CPU float64 setup, relative to max|M|
 # BENCH_r05 per-case mean iterations, measured on a TPU v5e: context only
 TPU_RECORD = {"jacobi": 99.19, "fsai": 23.15, "learned": 7.56}
+SCALING_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+                   / "scaling_iterations.json")
+B2_RTOL, B2_ATOL = 1e-5, 1e-6
+B2_MAIN = "poisson_3d_128"  # the scaling path's 128^3 7-band shape
+BANDS_RTOL = 1e-4  # card float32 factor vs CPU float64, relative to max|bands|
+SCALING_HEADER = ("shape,technique,n,sigma,iterations,setup_s,solve_s,"
+                  "total_s,converged,x_rel_err,safeguard_fallback")
+# BENCH_r05 scaling iterations, measured on a TPU v5e: context only
+TPU_SCALING_RECORD = {
+    64: {"vanilla": 348, "jacobi": 136, "fsai": 53, "learned": 23,
+         "gmg_jacobi": 14, "gmg_learned": 12},
+    128: {"vanilla": 651, "jacobi": 248, "fsai": 97, "learned": 43,
+          "gmg_jacobi": 18, "gmg_learned": 17},
+}
 
 
 def card_line() -> str:
@@ -129,6 +181,138 @@ def check_gauss_jordan(dev, card):
     return max_err, main_times
 
 
+def check_dia_spmv(dev, card):
+    """Phase 3b: B2 against its plain version on the SpMV section's
+    operators and on the multigrid coarse levels of the 128^3 scaling
+    operator; then the section's cold / resident roofline rows."""
+    rng = np.random.default_rng(1)
+    operators = spmv_operators(dev)
+    a, _ = scaling.scaling_operator(128, device=dev)
+    shape = (128, 128, 128)
+    coarse = []
+    while min(shape) >= 32:  # the levels GMG smooths below 128^3
+        a = galerkin_coarse_dia(a, shape)
+        shape = tuple(s // 2 for s in shape)
+        coarse.append((f"gmg_coarse_{shape[0]}^3", a))
+    max_err, times = 0.0, {}
+    with torch.no_grad():
+        for name, a in operators + coarse:
+            x = torch.tensor(rng.standard_normal(a.n_pad, dtype=np.float32),
+                             device=dev)
+            got = dia_matvec(a, x)
+            torch.cuda.synchronize()
+            ref = a.matvec(x)
+            diff = (got - ref).abs()
+            err = float(diff.max())
+            if not bool(torch.isfinite(got).all()) or bool(
+                    (diff > B2_ATOL + B2_RTOL * ref.abs()).any()):
+                raise AssertionError(
+                    f"B2 disagrees with its plain version on {name}: max "
+                    f"abs err {err}")
+            max_err = max(max_err, err)
+            k_s = time_call(lambda: dia_matvec(a, x), dev, reps=20)
+            p_s = time_call(lambda: a.matvec(x), dev, reps=20)
+            times[name] = (k_s * 1e3, p_s * 1e3)
+            print(f"B2 {name:<20} n_pad {a.n_pad:>8d} bands "
+                  f"{len(a.offsets):2d}: max abs err {err:.3e} (rtol "
+                  f"{B2_RTOL}, atol {B2_ATOL}); kernel {k_s * 1e3:.4f} ms, "
+                  f"plain {p_s * 1e3:.4f} ms [{card}]")
+            del x, got, ref, diff
+        for row in spmv_section(dev, operators):
+            print(f"SpMV {row['name']:<20} " + "; ".join(
+                f"{p} {row[p]['time_us']:.2f} us {row[p]['gnnz_per_s']:.2f}"
+                f" Gnnz/s {row[p]['achieved_gb_s']:.1f} GB/s HBM share "
+                f"{row[p]['bandwidth_fraction']:.3f}"
+                for p in ("cold", "resident")) + f" [{card}]")
+    return max_err, times
+
+
+def check_scaling_path(dev, card):
+    """Phase 4b: the scaling path at 64^3 and 128^3 against the JAX
+    reference counts; returns the kernel launches over the path."""
+    fixture = json.loads(SCALING_FIXTURE.read_text())
+    meta = (tuple(fixture["shapes"]), fixture["sigma"],
+            fixture["coeff_seed"], fixture["rhs_seed"], fixture["rtol"],
+            fixture["checkpoint"], fixture["smoother_checkpoint"])
+    if meta != (scaling.SHAPES, scaling.SIGMA, scaling.COEFF_SEED,
+                scaling.RHS_SEED, scaling.RTOL, scaling.CHECKPOINT,
+                scaling.SMOOTHER_CHECKPOINT):
+        raise AssertionError("the scaling fixture describes another run")
+    csv_path = RESULTS / "scaling_learned.csv"
+    t0 = time.perf_counter()
+    run = scaling.run_scaling(dev, out=csv_path)
+    wall_s = time.perf_counter() - t0
+    header = csv_path.read_text().splitlines()[0]
+    if header != SCALING_HEADER:
+        raise AssertionError(f"scaling CSV schema changed: {header}")
+    print(f"scaling path: shapes {scaling.SHAPES}, {wall_s:.1f} s wall "
+          f"(operators, setups, solves, timing reps)")
+    failures = []
+    totals = dict.fromkeys(_backend.KERNELS, 0)
+    print(f"per shape and technique on {card} (ms: setup median of "
+          f"{scaling.TIMING_REPS}, solve median of {scaling.TIMING_REPS} "
+          f"fixed-trip solves):")
+    for row in run.rows:
+        side = int(row["shape"].split("^")[0])
+        name = row["technique"]
+        key = (side, name)
+        ref = fixture["results"][str(side)]["iterations"][name]
+        iters = row["iterations"]
+        launches = run.launches[key]
+        plain = run.plain_on_cuda[key]
+        for kernel, count in launches.items():
+            totals[kernel] += count
+        print(f"  {row['shape']:<6} {name:<12} iters {iters:4d} (JAX CPU "
+              f"f32 {ref:4d}) setup {row['setup_s'] * 1e3:.3f} solve "
+              f"{row['solve_s'] * 1e3:.3f} total {row['total_s'] * 1e3:.3f}"
+              f" converged {row['converged']} launches {launches} plain on "
+              f"card {plain}")
+        allowed = 0.05 * ref if name == "vanilla" else max(2, 0.02 * ref)
+        if abs(iters - ref) > allowed:
+            failures.append(f"{key}: {iters} iterations vs {ref}")
+        if not row["converged"]:
+            failures.append(f"{key}: not converged")
+        if launches["dia_spmv"] == 0:
+            failures.append(f"{key}: B2 never launched")
+        n_pad = pad_rows(row["n"])  # one B1 launch per chunk of columns
+        per_setup = n_pad // CHUNK if n_pad % CHUNK == 0 else 1
+        want_gj = (per_setup * run.setup_calls[key]
+                   if name in scaling.STRUCTURED_TECHNIQUES else 0)
+        if launches["gauss_jordan"] != want_gj or (
+                name in scaling.STRUCTURED_TECHNIQUES and want_gj == 0):
+            failures.append(f"{key}: B1 launched {launches['gauss_jordan']}"
+                            f" times, expected {want_gj}")
+        if any(plain.values()):
+            failures.append(f"{key}: plain version ran on the card {plain}")
+        if name == "learned" and row["safeguard_fallback"]:
+            failures.append(f"{key}: the safeguard fell back to q = I")
+    print("TPU record for context only (BENCH_r05, TPU v5e, iterations): "
+          + "; ".join(f"{s}^3 {v}" for s, v in TPU_SCALING_RECORD.items()))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals
+
+
+def check_bands_against_cpu(dev):
+    """The 64^3 learned factor and q: the card (float32, kernels) against
+    the port's CPU float64 path."""
+    out = {}
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        a, _ = scaling.scaling_operator(64, dtype, device)
+        learned, power, _, _ = scaling.load_models(dtype, device)
+        plan = build_structured_plan((64, 64, 64), power=power)
+        with torch.no_grad():
+            bands, q = structured_setup(a, plan, learned)
+        out[device] = (bands.double().cpu(), q.double().cpu())
+    (b_dev, q_dev), (b_cpu, q_cpu) = out[dev], out["cpu"]
+    rel = float((b_dev - b_cpu).abs().max() / b_cpu.abs().max())
+    rel_q = float((q_dev - q_cpu).abs().max() / q_cpu.abs().max())
+    print(f"64^3 learned factor: card f32 vs CPU f64, max abs diff / "
+          f"max|bands| = {rel:.3e}, q {rel_q:.3e} (limit {BANDS_RTOL})")
+    if not (rel <= BANDS_RTOL and rel_q <= BANDS_RTOL):
+        raise AssertionError("the 64^3 learned setup disagrees with the CPU")
+
+
 def check_setup_against_cpu(suite):
     """fsai and learned M of the split's first case: the card (float32,
     kernel B1) against the port's CPU float64 path."""
@@ -178,15 +362,17 @@ def main() -> None:
           f"kernels, max {max(regs, default=0)} registers, "
           f"{sum(spills)} spill bytes")
 
-    # 3. kernel against its plain version
+    # 3. kernels against their plain versions
     gj_err, (gj_ms, gj_plain_ms) = check_gauss_jordan(dev, card)
+    dia_err, dia_times = check_dia_spmv(dev, card)
 
-    # 4. main path
+    # 4. the per-case main path
     fixture = json.loads(FIXTURE.read_text())
     t0 = time.perf_counter()
     _backend.reset_launch_counts()
     suite = run_main_path(dev, results_directory=RESULTS)
     launches = _backend.launch_counts()["gauss_jordan"]
+    plain = _backend.plain_cuda_counts()
     wall_s = time.perf_counter() - t0
     if (fixture["seed"], fixture["cases"], fixture["n_pad"]) != (
             SEED, len(suite.data_set), suite.data_set.dof_pad):
@@ -200,9 +386,12 @@ def main() -> None:
           f"{wall_s:.1f} s wall (generation, plans, timing reps)")
     expected = suite.setup_calls["fsai"] + suite.setup_calls["learned"]
     print(f"B1 launches on the main path: {launches} "
-          f"(fsai + learned setups: {expected})")
+          f"(fsai + learned setups: {expected}); plain versions on the "
+          f"card: {plain}")
     if launches == 0 or launches != expected:
         raise AssertionError("main path did not run B1 once per setup")
+    if any(plain.values()):
+        raise AssertionError("the main path ran a plain version on the card")
 
     failures = []
     print(f"per technique on {card} (median ms over cases):")
@@ -230,17 +419,31 @@ def main() -> None:
         raise AssertionError("; ".join(failures))
     check_setup_against_cpu(suite)
 
+    # 4b. the structured-grid scaling path
+    scaling_launches = check_scaling_path(dev, card)
+    check_bands_against_cpu(dev)
+
     # 5. records
+    dia_ms, dia_plain_ms = dia_times[B2_MAIN]
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
         "source": "deeppreconditioning_tpu_torch/csrc/gauss_jordan.cu",
         "replaces": "deeppreconditioning_tpu/ops/fsai.py:614",
-        "launches": launches,
+        "launches": launches + scaling_launches["gauss_jordan"],
         "max_abs_err": gj_err,
         "ms": gj_ms,
         "plain_ms": gj_plain_ms,
+    }, {
+        "name": "dia_spmv",
+        "route": "cuda",
+        "source": "deeppreconditioning_tpu_torch/csrc/dia_spmv.cu",
+        "replaces": "deeppreconditioning_tpu/ops/pallas_spmv.py:32",
+        "launches": scaling_launches["dia_spmv"],
+        "max_abs_err": dia_err,
+        "ms": dia_ms,
+        "plain_ms": dia_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

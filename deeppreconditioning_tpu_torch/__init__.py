@@ -7,13 +7,15 @@ only — never jax, flax or yaml — so it runs on a machine that has none of
 them.
 
 Layer map (entry point down to the card):
-    bench/     per-case benchmark suite and the ``python -m`` entry point
+    bench/     per-case suite and its ``python -m`` entry point; the
+               structured-grid scaling run and the SpMV roofline section
     models/    NeuralFSAI as an ``nn.Module`` (local solves + MLP + wrap)
     train/     Flax msgpack checkpoint reader (no msgpack/flax import)
-    solvers/   chunked PCG with one host read per chunk
-    ops/       FSAI range plans and setups; the Gauss–Jordan kernel (B1)
-    sparse/    ELL matrix
-    data/      FVM sludge-pattern generator and host dataset
+    solvers/   chunked PCG (one host read per chunk), fixed-trip PCG
+    ops/       FSAI range plans and setups; structured FSAI; geometric
+               multigrid; the Gauss–Jordan (B1) and DIA SpMV (B2) wrappers
+    sparse/    ELL and DIA matrices
+    data/      FVM sludge-pattern generator, host dataset, DIA Poisson
     csrc/      hand-written CUDA kernels for sm_90a, built on first use
     _backend   device selection, kernel build/load, launch counters
 """

@@ -2,12 +2,17 @@
 
 The CUDA kernels live as sources under ``csrc/`` and are compiled with
 ``nvcc`` into one shared library with a plain C interface on first use
-(``kernel_library``), then bound with ``ctypes``.  Nothing is built or
-loaded at import time: the CPU tests import every module of the port.
+(``kernel_library``: one ``nvcc -c`` per source, all started together,
+then one link), then bound with ``ctypes``.  Nothing is built or loaded
+at import time: the CPU tests import every module of the port.
 
 Every kernel wrapper calls ``count_launch(name)`` right after a launch the
 kernel accepted, and nowhere else, so a run can show that its main path
 went through the kernels (``reset_launch_counts`` / ``launch_counts``).
+Every plain version calls ``count_plain(name, tensor)``, which counts the
+calls made on a CUDA tensor (``plain_cuda_counts``): a main path on the
+card must read 0 there, since on the card only a comparison with the
+kernel runs the plain version.
 """
 
 from __future__ import annotations
@@ -30,10 +35,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+KERNELS = ("gauss_jordan", "dia_spmv")
 
-_launches: dict[str, int] = {"gauss_jordan": 0}
+_launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+_plain_on_cuda: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _library: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output (ptxas register/spill report)
 
@@ -51,13 +58,25 @@ def count_launch(name: str) -> None:
     _launches[name] += 1
 
 
+def count_plain(name: str, tensor: torch.Tensor) -> None:
+    """Record a call of ``name``'s plain version if it ran on the card."""
+    if tensor.device.type == "cuda":
+        _plain_on_cuda[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for name in _launches:
+    """Zero the launch counts and the plain-on-CUDA counts."""
+    for name in KERNELS:
         _launches[name] = 0
+        _plain_on_cuda[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return dict(_launches)
+
+
+def plain_cuda_counts() -> dict[str, int]:
+    return dict(_plain_on_cuda)
 
 
 def _nvcc() -> str:
@@ -69,6 +88,42 @@ def _nvcc() -> str:
     if candidate.exists():
         return str(candidate)
     raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
+
+
+def _build(sources: list[Path], lib_path: Path) -> str:
+    """Compile every source to an object in parallel, link the library
+    atomically into ``lib_path``; return nvcc's combined output."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(sources, objects)
+    ]
+    logs, failed = [], False
+    for src, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        logs.append(f"--- {src.name}\n{out}")
+        failed |= proc.returncode != 0
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-o", str(tmp), *map(str, objects)],
+        capture_output=True, text=True,
+    )
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, lib_path)
+    return log
 
 
 def kernel_library() -> ctypes.CDLL:
@@ -89,19 +144,18 @@ def kernel_library() -> ctypes.CDLL:
     digest.update(" ".join(NVCC_FLAGS).encode())
     lib_path = BUILD_DIR / f"libdp_kernels_{digest.hexdigest()[:16]}.so"
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{build_log}")
-        os.replace(tmp, lib_path)
+        build_log = _build(sources, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.dp_gauss_jordan_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.dp_gauss_jordan_f32.restype = ctypes.c_int
+    lib.dp_dia_spmv_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.dp_dia_spmv_f32.restype = ctypes.c_int
     _library = lib
     return lib

@@ -26,6 +26,7 @@ def masked_gauss_jordan_torch(sub: torch.Tensor,
     Gauss–Jordan on ``[sub | e]`` with the same step order (row k divided
     by the pivot, column k zeroed in row k, eliminate, replace row k).
     Any dtype and device; the kernel's oracle."""
+    _backend.count_plain("gauss_jordan", sub)
     w = sub.shape[-1]
     aug = torch.cat([sub, e.unsqueeze(-1)], dim=-1)  # (..., w, w+1)
     row_iota = torch.arange(w, device=sub.device)

@@ -11,7 +11,9 @@ Numeric contract of ``deeppreconditioning_tpu/solvers/cg.py``:
 The loop runs ``check_every`` masked iterations per chunk, all on the
 device (``torch.where`` freezes the state once done), and reads ``done``
 on the host once per chunk.  Iteration counts are exact per iteration,
-not rounded to chunks.
+not rounded to chunks.  ``pcg_fixed_trips`` runs the same masked
+iteration a fixed number of times with no host read at all, so its
+counts equal the chunked solver's whenever ``trips`` covers the solve.
 """
 
 from __future__ import annotations
@@ -42,6 +44,45 @@ def ell_matvec(a, x: torch.Tensor) -> torch.Tensor:
     return a.matvec(x)
 
 
+class _PCGState(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    k: torch.Tensor  # int32 scalar: iterations taken
+    done: torch.Tensor  # bool scalar: (r.r)/(b.b) < rtol reached
+
+
+def _pcg_start(matvec, a_data, b, apply_m, m_data, rtol):
+    x = torch.zeros_like(b)
+    r = b - matvec(a_data, x)
+    z = apply_m(m_data, r)
+    bb = torch.dot(b, b)
+    bb = torch.where(bb == 0, torch.ones_like(bb), bb)
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    return _PCGState(x, r, z, z, k, torch.dot(r, r) / bb < rtol), bb
+
+
+def _masked_iteration(matvec, a_data, apply_m, m_data, s: _PCGState, bb,
+                      rtol, max_iter) -> _PCGState:
+    """One PCG iteration, frozen by ``torch.where`` once done (or at
+    ``max_iter``)."""
+    frozen = s.done | (s.k >= max_iter)
+    zero = torch.zeros((), dtype=s.r.dtype, device=s.r.device)
+    ap = matvec(a_data, s.p)
+    rz = torch.dot(s.r, s.z)
+    denom = torch.dot(ap, s.p)
+    alpha = torch.where(frozen, zero, rz / denom)
+    x = s.x + alpha * s.p
+    r_new = torch.where(frozen, s.r, s.r - alpha * ap)
+    z_new = torch.where(frozen, s.z, apply_m(m_data, r_new))
+    beta = torch.where(frozen, zero, torch.dot(r_new, z_new) / rz)
+    p = torch.where(frozen, s.p, z_new + beta * s.p)
+    k = torch.where(frozen, s.k, s.k + 1)
+    done = s.done | (torch.dot(r_new, r_new) / bb < rtol)
+    return _PCGState(x, r_new, z_new, p, k, done)
+
+
 def preconditioned_conjugate_gradient(
     matvec: Callable[[Any, torch.Tensor], torch.Tensor],
     a_data: Any,
@@ -53,29 +94,29 @@ def preconditioned_conjugate_gradient(
     check_every: int = 64,
 ) -> CGResult:
     """Solve A x = b with PCG (see the module docstring)."""
-    x = torch.zeros_like(b)
-    r = b - matvec(a_data, x)
-    z = apply_m(m_data, r)
-    p = z
-    bb = torch.dot(b, b)
-    bb = torch.where(bb == 0, torch.ones_like(bb), bb)
-    k = torch.zeros((), dtype=torch.int32, device=b.device)
-    done = torch.dot(r, r) / bb < rtol
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
-
-    while not bool(done | (k >= max_iter)):
+    s, bb = _pcg_start(matvec, a_data, b, apply_m, m_data, rtol)
+    while not bool(s.done | (s.k >= max_iter)):
         for _ in range(check_every):
-            frozen = done | (k >= max_iter)
-            ap = matvec(a_data, p)
-            rz = torch.dot(r, z)
-            denom = torch.dot(ap, p)
-            alpha = torch.where(frozen, zero, rz / denom)
-            x = x + alpha * p
-            r_new = torch.where(frozen, r, r - alpha * ap)
-            z_new = torch.where(frozen, z, apply_m(m_data, r_new))
-            beta = torch.where(frozen, zero, torch.dot(r_new, z_new) / rz)
-            p = torch.where(frozen, p, z_new + beta * p)
-            k = torch.where(frozen, k, k + 1)
-            done = done | (torch.dot(r_new, r_new) / bb < rtol)
-            r, z = r_new, z_new
-    return CGResult(x=x, iterations=k, residual=torch.dot(r, r) / bb)
+            s = _masked_iteration(matvec, a_data, apply_m, m_data, s, bb,
+                                  rtol, max_iter)
+    return CGResult(x=s.x, iterations=s.k, residual=torch.dot(s.r, s.r) / bb)
+
+
+def pcg_fixed_trips(
+    matvec: Callable[[Any, torch.Tensor], torch.Tensor],
+    a_data: Any,
+    b: torch.Tensor,
+    apply_m: Callable[[Any, torch.Tensor], torch.Tensor] = identity_apply,
+    m_data: Any = None,
+    rtol: float = 1e-8,
+    max_iter: int = 1024,
+    trips: int = 8,
+) -> CGResult:
+    """PCG for exactly ``trips`` masked iterations, with no host read:
+    the same iterations, count and x as the chunked solver when ``trips``
+    covers the solve."""
+    s, bb = _pcg_start(matvec, a_data, b, apply_m, m_data, rtol)
+    for _ in range(trips):
+        s = _masked_iteration(matvec, a_data, apply_m, m_data, s, bb, rtol,
+                              max_iter)
+    return CGResult(x=s.x, iterations=s.k, residual=torch.dot(s.r, s.r) / bb)

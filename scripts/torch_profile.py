@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""torch.profiler breakdown of the port's per-case main path on a card.
+"""torch.profiler breakdown of the port's two paths on a card.
 
     python3 scripts/torch_profile.py
 
-Builds the main path as ``python -m deeppreconditioning_tpu_torch.bench``
+Per-case path: builds it as ``python -m deeppreconditioning_tpu_torch.bench``
 does (500 sludge-pattern cases from seed 69420, the 100-case test split,
 the flagship NeuralFSAI checkpoint) and, for each of vanilla, jacobi,
 fsai and learned on its own, runs the suite's per-case protocol (the
@@ -12,6 +12,12 @@ cases under ``torch.profiler``.  Per technique it prints the wall time
 of the profiled run, the device time (the summed durations of the
 kernels, memcpys and memsets the card ran) and its share of the wall,
 the per-case medians of setup and solve, and the top device items.
+
+Scaling path: for each technique of ``bench/scaling.py`` on its own,
+``run_scaling`` at ``SCALING_SIDE``^3 with one timing rep (setup warm-up,
+timed setup, kept setup, chunked solve, fixed-trip solve, timed solve)
+under ``torch.profiler``, with the same report.
+
 The profiler's host overhead lengthens the wall, so the share is a lower
 bound of the unprofiled busy share.  Needs a CUDA device.
 """
@@ -28,6 +34,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from deeppreconditioning_tpu_torch import _backend  # noqa: E402
+from deeppreconditioning_tpu_torch.bench import scaling  # noqa: E402
 from deeppreconditioning_tpu_torch.bench.__main__ import (  # noqa: E402
     KAPPA_CASES,
     SEED,
@@ -51,6 +58,7 @@ from deeppreconditioning_tpu_torch.train.checkpoint import (  # noqa: E402
 
 CASES = 10
 TOP_ROWS = 8
+SCALING_SIDE = 128
 
 
 class LeadingCases:
@@ -73,9 +81,16 @@ def device_busy_ms(prof) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) * 1e-3
 
 
-def main() -> None:
-    dev = _backend.device()
-    _backend.kernel_library()
+def report(name, prof, wall_ms, detail):
+    busy_ms = device_busy_ms(prof)
+    print(f"== {name}: wall {wall_ms:.1f} ms, device {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {detail}")
+    print(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=TOP_ROWS,
+        max_name_column_width=60))
+
+
+def profile_per_case(dev) -> None:
     params = params_show(REPO / "params.yaml")
     cases = generate_cases(params.number_samples, SEED, params.mesh_cells)
     data_set = LeadingCases(SludgePatternDataSet(stage="test", cases=cases),
@@ -98,15 +113,36 @@ def main() -> None:
             suite.run()
             torch.cuda.synchronize(dev)
             wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_ms = device_busy_ms(prof)
-        print(f"== {name}: wall {wall_ms:.1f} ms, device {busy_ms:.1f} ms "
-              f"({100 * busy_ms / wall_ms:.1f}%), iterations mean "
-              f"{np.mean(suite.iterations[name]):.2f}, setup median "
-              f"{np.median(suite.setups[name]) * 1e3:.3f} ms, solve median "
-              f"{np.median(suite.durations[name]) * 1e3:.3f} ms")
-        print(prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=TOP_ROWS,
-            max_name_column_width=60))
+        report(name, prof, wall_ms,
+               f"iterations mean {np.mean(suite.iterations[name]):.2f}, "
+               f"setup median {np.median(suite.setups[name]) * 1e3:.3f} ms, "
+               f"solve median {np.median(suite.durations[name]) * 1e3:.3f}"
+               " ms")
+
+
+def profile_scaling(dev) -> None:
+    print(f"scaling path at {SCALING_SIDE}^3, one timing rep")
+    for name in scaling.TECHNIQUES:
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run = scaling.run_scaling(dev, shapes=(SCALING_SIDE,), reps=1,
+                                      out=None, techniques=(name,))
+            torch.cuda.synchronize(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        row = run.rows[0]
+        report(f"{SCALING_SIDE}^3 {name}", prof, wall_ms,
+               f"iterations {row['iterations']}, setup "
+               f"{row['setup_s'] * 1e3:.3f} ms, solve "
+               f"{row['solve_s'] * 1e3:.3f} ms")
+
+
+def main() -> None:
+    dev = _backend.device()
+    _backend.kernel_library()
+    profile_per_case(dev)
+    profile_scaling(dev)
 
 
 if __name__ == "__main__":
