@@ -9,9 +9,10 @@ Phases (each raises on failure):
   2. build: compile and load the CUDA kernels from ``csrc/`` (nvcc, one
      process per source, in parallel);
   3. kernel B1 (batched Gauss–Jordan) against its plain PyTorch version
-     at w in {4, 8, 13, 24} and N in {1024, 131072}, float32, within
-     rtol 1e-4 / atol 1e-6; kernel and plain times (CUDA events, median
-     of 20);
+     at w in {4, 8, 13, 24, 31, 32, 41, 63} and N in {1024, 131072},
+     float32, within rtol 1e-4 / atol 1e-6; kernel and plain times (CUDA
+     events, median of 20); after phase 4c also on the real w-41 local
+     systems of a frames case's range plan;
   3b. kernel B2 (DIA SpMV) against its plain PyTorch version on
      ``poisson_dia`` at 512^2, 128^3 and 256^3, on the 13-band halves
      (c_up, c_low) of a 128^3 structured FSAI factor and on the Galerkin
@@ -19,6 +20,15 @@ Phases (each raises on failure):
      |kernel - plain| <= 1e-6 + 1e-5 |plain|; kernel and plain times
      (CUDA events, median of 20); the SpMV section's cold and resident
      GB/s and HBM share;
+  3c. kernel B3 (BSR SpMV / SpMM) against its plain PyTorch version on the
+     four BSR operators of the SpMV roofline at block size 128 (m = 1)
+     and on the frame operator at m in {8, 128}, float32, within
+     |kernel - plain| <= 1e-5 max|plain| + 1e-6; kernel and plain times
+     (CUDA events, median of 20); then the roofline path through its
+     entry point's sections (``python -m
+     deeppreconditioning_tpu_torch.bench.roofline``: the B2 sweep at 64^3
+     .. 256^3 beside the stencil, the B3 rows), cold and resident, with
+     B2 and B3 launched and no plain version run on the card;
   4. the per-case main path through the entry point
      (``python -m deeppreconditioning_tpu_torch.bench``'s ``run``): 500
      sludge-pattern cases from seed 69420, the 100-case test split, the
@@ -42,6 +52,19 @@ Phases (each raises on failure):
      version run on the card, and the reference's CSV header; the 64^3
      learned factor and q on the card agree with the port's CPU float64
      path to 1e-4 (relative to max |bands|);
+  4c. the frame-structure family through its entry point
+     (``python -m deeppreconditioning_tpu_torch.bench.frames``'s ``run``):
+     200 frame cases from seed 69422, the 40-case test split, the frames
+     NeuralFSAI checkpoint (w 41), vanilla / jacobi / fsai / learned.
+     Requires per-case success equal to the JAX reference's
+     (``tests/fixtures/torch_port/frames_iterations.json``), mean
+     iterations within 1% (vanilla 5%), per-case |delta| <= 2 (vanilla
+     and jacobi max(2, 5%): their float32 CG drifts between platforms on
+     these stiff systems), the generic plan on exactly the fixture's
+     cases, B1 launched once per fsai/learned setup, no plain version run
+     on the card, the reference's table header; fsai and learned M of a range
+     case and a generic case on the card agree with the port's CPU
+     float64 path to 1e-4 (relative to max |M|);
   5. the card line, one JSON line of kernel records, and the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -72,6 +95,8 @@ from deeppreconditioning_tpu_torch.bench.suite import (  # noqa: E402
     TECHNIQUES,
     BenchmarkSuite,
 )
+from deeppreconditioning_tpu_torch.bench import frames  # noqa: E402
+from deeppreconditioning_tpu_torch.bench import roofline  # noqa: E402
 from deeppreconditioning_tpu_torch.bench import scaling  # noqa: E402
 from deeppreconditioning_tpu_torch.bench.spmv import (  # noqa: E402
     spmv_operators,
@@ -80,8 +105,16 @@ from deeppreconditioning_tpu_torch.bench.spmv import (  # noqa: E402
 from deeppreconditioning_tpu_torch.models.neural_fsai import (  # noqa: E402
     neural_fsai_from_checkpoint,
 )
+from deeppreconditioning_tpu_torch.ops.bsr_spmm import (  # noqa: E402
+    bsr_matmat,
+    bsr_matvec,
+)
 from deeppreconditioning_tpu_torch.ops.dia_spmv import (  # noqa: E402
     dia_matvec,
+)
+from deeppreconditioning_tpu_torch.ops.fsai import (  # noqa: E402
+    local_systems,
+    range_local_blocks,
 )
 from deeppreconditioning_tpu_torch.ops.gauss_jordan import (  # noqa: E402
     masked_gauss_jordan,
@@ -105,7 +138,7 @@ from deeppreconditioning_tpu_torch.utils.profiling import (  # noqa: E402
 
 FIXTURE = REPO / "tests" / "fixtures" / "torch_port" / "percase_iterations.json"
 RESULTS = REPO / "build" / "chip_smoke_results"
-GJ_WIDTHS = (4, 8, 13, 24)
+GJ_WIDTHS = (4, 8, 13, 24, 31, 32, 41, 63)
 GJ_SIZES = (1024, 131072)
 GJ_MAIN_SHAPE = (1024, 24)  # (N, w) of one main-path setup
 GJ_RTOL, GJ_ATOL = 1e-4, 1e-6
@@ -119,6 +152,14 @@ B2_MAIN = "poisson_3d_128"  # the scaling path's 128^3 7-band shape
 BANDS_RTOL = 1e-4  # card float32 factor vs CPU float64, relative to max|bands|
 SCALING_HEADER = ("shape,technique,n,sigma,iterations,setup_s,solve_s,"
                   "total_s,converged,x_rel_err,safeguard_fallback")
+B3_RTOL, B3_ATOL = 1e-5, 1e-6  # relative to max|plain|, absolute
+B3_MAIN = "frame_structure"  # the roofline's frame operator at m = 1
+B3_WIDE = (8, 128)  # SpMM widths checked on the frame operator
+FRAMES_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+                  / "frames_iterations.json")
+# Unpreconditioned and Jacobi float32 CG on the frame systems (kappa
+# ~3.5e3 and ~1.2e3) drift per case between platforms (ROADMAP C).
+FRAMES_DRIFT = ("vanilla", "jacobi")
 # BENCH_r05 scaling iterations, measured on a TPU v5e: context only
 TPU_SCALING_RECORD = {
     64: {"vanilla": 348, "jacobi": 136, "fsai": 53, "learned": 23,
@@ -313,33 +354,205 @@ def check_bands_against_cpu(dev):
         raise AssertionError("the 64^3 learned setup disagrees with the CPU")
 
 
-def check_setup_against_cpu(suite):
-    """fsai and learned M of the split's first case: the card (float32,
+def check_setup_against_cpu(suite, checkpoint, cases=(0,)):
+    """fsai and learned M of the split's ``cases``: the card (float32,
     kernel B1) against the port's CPU float64 path."""
-    payload = load_checkpoint(REPO / "assets" / "checkpoints_fsai"
-                              / "best.msgpack")
     cpu = BenchmarkSuite(
-        suite.data_set, neural_fsai_from_checkpoint(payload),
+        suite.data_set, neural_fsai_from_checkpoint(load_checkpoint(checkpoint)),
         techniques=("fsai", "learned"), device="cpu", dtype=torch.float64,
-        learned_power=suite.learned_power,
+        fsai_power=suite.fsai_power, learned_power=suite.learned_power,
     )
     worst = 0.0
     n_pad = suite.data_set.dof_pad
     with torch.no_grad():
-        for name in ("fsai", "learned"):
-            m_dev = suite.setup(name, 0)[1]
-            m_cpu = cpu.setup(name, 0)[1]
-            if tuple(m_dev.shape) != (n_pad, n_pad) or not bool(
-                    torch.isfinite(m_dev).all()):
-                raise AssertionError(f"{name}: bad M on the card")
-            rel = float((m_dev.double().cpu() - m_cpu).abs().max()
-                        / m_cpu.abs().max())
-            print(f"case 0 {name} M: card f32 vs CPU f64, max abs diff / "
-                  f"max|M| = {rel:.3e} (limit {M_RTOL})")
-            if not rel <= M_RTOL:
-                raise AssertionError(f"{name} setup disagrees with the CPU")
-            worst = max(worst, rel)
+        for index in cases:
+            for name in ("fsai", "learned"):
+                m_dev = suite.setup(name, index)[1]
+                m_cpu = cpu.setup(name, index)[1]
+                if tuple(m_dev.shape) != (n_pad, n_pad) or not bool(
+                        torch.isfinite(m_dev).all()):
+                    raise AssertionError(f"{name}: bad M on the card")
+                rel = float((m_dev.double().cpu() - m_cpu).abs().max()
+                            / m_cpu.abs().max())
+                kind = ("generic" if index in suite.generic_cases[name]
+                        else "range")
+                print(f"case {index} ({kind} plan) {name} M: card f32 vs "
+                      f"CPU f64, max abs diff / max|M| = {rel:.3e} (limit "
+                      f"{M_RTOL})")
+                if not rel <= M_RTOL:
+                    raise AssertionError(
+                        f"case {index} {name} setup disagrees with the CPU")
+                worst = max(worst, rel)
     return worst
+
+
+def check_bsr_spmm(dev, card):
+    """Phase 3c, kernel half: B3 against its plain version on the
+    roofline's BSR operators at m = 1 and on the frame operator at
+    m in B3_WIDE; returns the max error, the times and the operators."""
+    rng = np.random.default_rng(3)
+    operators = roofline.bsr_operators(dev)
+    max_err, times = 0.0, {}
+    with torch.no_grad():
+        for name, a, nnz in operators:
+            widths = (1,) + (B3_WIDE if name == B3_MAIN else ())
+            for m in widths:
+                shape = (a.n_pad,) if m == 1 else (a.n_pad, m)
+                x = torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                                 device=dev)
+                if m == 1:
+                    def kernel(): return bsr_matvec(a, x)
+                    def plain(): return a.matvec(x)
+                else:
+                    def kernel(): return bsr_matmat(a, x)
+                    def plain(): return a.matmat(x)
+                got = kernel()
+                torch.cuda.synchronize()
+                ref = plain()
+                err = float((got - ref).abs().max())
+                bound = B3_RTOL * float(ref.abs().max()) + B3_ATOL
+                if not bool(torch.isfinite(got).all()) or not err <= bound:
+                    raise AssertionError(
+                        f"B3 disagrees with its plain version on {name} "
+                        f"m={m}: max abs err {err} > {bound}")
+                max_err = max(max_err, err)
+                k_s = time_call(kernel, dev, reps=20)
+                p_s = time_call(plain, dev, reps=20)
+                times[(name, m)] = (k_s * 1e3, p_s * 1e3)
+                print(f"B3 {name:<18} R {a.n_block_rows:4d} S {a.slots:2d} "
+                      f"bs {a.block_size} m {m:3d}: max abs err {err:.3e} "
+                      f"(bound {bound:.3e}); kernel {k_s * 1e3:.4f} ms, "
+                      f"plain {p_s * 1e3:.4f} ms [{card}]")
+                del x, got, ref
+    return max_err, times, operators
+
+
+def run_roofline_path(dev, card, operators):
+    """Phase 3c, path half: the roofline entry point's two sections with
+    the launch counts zeroed just before and read just after; writes the
+    two CSVs next to the other results."""
+    _backend.reset_launch_counts()
+    dia = roofline.dia_section(dev)
+    bsr = roofline.bsr_section(dev, operators)
+    launches = _backend.launch_counts()
+    plain = _backend.plain_cuda_counts()
+    name = torch.cuda.get_device_name(dev)
+    roofline.write_csv(dia, RESULTS / "spmv_roofline.csv", name)
+    roofline.write_csv(bsr, RESULTS / "spmv_bsr.csv", name)
+    for row in dia:
+        print(f"roofline {row['grid']:>3}^3 B2: cold {row['dia_us']:.2f} us "
+              f"{row['dia_gnnz_s']:.2f} Gnnz/s {row['dia_gb_s']:.1f} GB/s "
+              f"HBM share {row['dia_bw_frac']:.3f}; resident "
+              f"{row['dia_resident_us']:.2f} us HBM share "
+              f"{row['dia_resident_bw_frac']:.3f}; stencil (plain) cold "
+              f"{row['stencil_us']:.2f} us share {row['stencil_bw_frac']:.3f}"
+              f" [{card}]")
+    for row in bsr:
+        print(f"roofline {row['operator']:<18} B3 fill "
+              f"{row['block_fill']:.4f}: cold {row['bsr_us']:.2f} us "
+              f"{row['bsr_gnnz_s']:.2f} Gnnz/s {row['bsr_block_gb_s']:.1f} "
+              f"block GB/s HBM share {row['bsr_bw_frac']:.3f}; resident "
+              f"{row['bsr_resident_us']:.2f} us HBM share "
+              f"{row['bsr_resident_bw_frac']:.3f} [{card}]")
+    print(f"roofline path launches {launches}; plain versions on the card "
+          f"{plain}")
+    if launches["bsr_spmm"] == 0 or launches["dia_spmv"] == 0:
+        raise AssertionError("the roofline path did not launch B2 and B3")
+    if any(plain.values()):
+        raise AssertionError("the roofline path ran a plain version on "
+                             "the card")
+    return launches
+
+
+def check_frames_path(dev, card):
+    """Phase 4c: the frames family per case against the JAX reference
+    counts; returns the suite and its kernel launches."""
+    fixture = json.loads(FRAMES_FIXTURE.read_text())
+    t0 = time.perf_counter()
+    _backend.reset_launch_counts()
+    suite = frames.run(dev, results_directory=RESULTS / "frames")
+    launches = _backend.launch_counts()
+    plain = _backend.plain_cuda_counts()
+    wall_s = time.perf_counter() - t0
+    if (fixture["seed"], fixture["cases"], fixture["n_pad"]) != (
+            frames.SEED, len(suite.data_set), suite.data_set.dof_pad):
+        raise AssertionError("the frames fixture describes another split")
+    suite.dump_csv()
+    header = (RESULTS / "frames" / "table.csv").read_text().splitlines()[0]
+    if header != "technique," + ",".join(TABLE_PARAMETERS):
+        raise AssertionError(f"frames table schema changed: {header}")
+    expected = suite.setup_calls["fsai"] + suite.setup_calls["learned"]
+    print(f"frames path: {len(suite.data_set)} cases, n_pad "
+          f"{suite.data_set.dof_pad}, {wall_s:.1f} s wall (generation, "
+          f"plans, timing reps); B1 launches {launches['gauss_jordan']} "
+          f"(fsai + learned setups: {expected}); plain versions on the "
+          f"card: {plain}")
+    failures = []
+    if launches["gauss_jordan"] == 0 or launches["gauss_jordan"] != expected:
+        failures.append("B1 not launched once per fsai/learned setup")
+    if any(plain.values()):
+        failures.append(f"a plain version ran on the card: {plain}")
+    for name in ("fsai", "learned"):
+        got = sorted(suite.generic_cases[name])
+        if got != fixture["generic_cases"][name]:
+            failures.append(f"{name}: generic plan on {got}, reference "
+                            f"{fixture['generic_cases'][name]}")
+    print(f"per technique on {card} (median ms over cases; generic plan on "
+          f"cases {sorted(suite.generic_cases['fsai'])}):")
+    for name in TECHNIQUES:
+        iters = np.asarray(suite.iterations[name])
+        ref = np.asarray(fixture["iterations"][name])
+        mean, ref_mean = float(iters.mean()), float(ref.mean())
+        delta = np.abs(iters - ref)
+        success = [s == 100.0 for s in suite.successes[name]]
+        print(f"  {name:<8} iters {mean:7.3f} (JAX CPU f32 {ref_mean:7.3f}, "
+              f"max |delta| per case {int(delta.max())}) setup "
+              f"{np.median(suite.setups[name]) * 1e3:.3f} solve "
+              f"{np.median(suite.durations[name]) * 1e3:.3f} total "
+              f"{np.median(suite.totals[name]) * 1e3:.3f} success "
+              f"{np.mean(success) * 100:.0f}%")
+        if success != fixture["success"][name]:
+            failures.append(f"{name}: successes differ from the reference")
+        mean_tol = 0.05 if name == "vanilla" else 0.01
+        if abs(mean - ref_mean) > mean_tol * ref_mean:
+            failures.append(f"{name}: mean {mean} vs reference {ref_mean}")
+        case_tol = (np.maximum(2, 0.05 * ref) if name in FRAMES_DRIFT
+                    else 2)
+        if (delta > case_tol).any():
+            failures.append(f"{name}: a case is {int(delta.max())} "
+                            "iterations off")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return suite, launches
+
+
+def check_gauss_jordan_frames(suite, card, index):
+    """B1 against its plain version on the real local systems of frames
+    case ``index``'s learned range plan (w 41)."""
+    _, ell, _ = suite._system(index)
+    kind, plan, a_dense, _ = suite._fsai_plan(
+        index, ell, width=suite.model.width, power=suite.learned_power)
+    if kind != "range":
+        raise AssertionError(f"frames case {index} is not a range case")
+    with torch.no_grad():
+        sub, e = local_systems(plan, range_local_blocks(plan, a_dense))
+        got = masked_gauss_jordan(sub, e)
+        torch.cuda.synchronize()
+        ref = masked_gauss_jordan_torch(sub, e)
+    diff = (got - ref).abs()
+    err = float(diff.max())
+    k_s = time_call(lambda: masked_gauss_jordan(sub, e), sub.device, reps=20)
+    p_s = time_call(lambda: masked_gauss_jordan_torch(sub, e), sub.device,
+                    reps=20)
+    print(f"B1 on frames case {index}'s local systems (N {sub.shape[0]}, w "
+          f"{sub.shape[1]}): max abs err {err:.3e} (rtol {GJ_RTOL}, atol "
+          f"{GJ_ATOL}); kernel {k_s * 1e3:.4f} ms, plain {p_s * 1e3:.4f} ms "
+          f"[{card}]")
+    if sub.shape[1] != 41 or not bool(torch.isfinite(got).all()) or bool(
+            (diff > GJ_ATOL + GJ_RTOL * ref.abs()).any()):
+        raise AssertionError("B1 disagrees with its plain version on the "
+                             "frames systems")
+    return err
 
 
 def main() -> None:
@@ -356,15 +569,22 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     regs = [int(r) for r in re.findall(r"Used (\d+) registers",
                                        _backend.build_log)]
-    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
-                                         _backend.build_log)]
+    spilled = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes "
+                         r"stack frame, ([1-9]\d*) bytes spill stores",
+                         _backend.build_log)
     print(f"build: {build_s:.1f} s (0 if cached); ptxas: {len(regs)} "
           f"kernels, max {max(regs, default=0)} registers, "
-          f"{sum(spills)} spill bytes")
+          f"{sum(int(b) for _, b in spilled)} spill bytes"
+          + "".join(f"; {b} in {name}" for name, b in spilled))
 
     # 3. kernels against their plain versions
     gj_err, (gj_ms, gj_plain_ms) = check_gauss_jordan(dev, card)
     dia_err, dia_times = check_dia_spmv(dev, card)
+    bsr_err, bsr_times, bsr_ops = check_bsr_spmm(dev, card)
+
+    # 3c. the roofline path
+    roofline_launches = run_roofline_path(dev, card, bsr_ops)
+    del bsr_ops
 
     # 4. the per-case main path
     fixture = json.loads(FIXTURE.read_text())
@@ -417,21 +637,33 @@ def main() -> None:
           + ", ".join(f"{k} {v}" for k, v in TPU_RECORD.items()))
     if failures:
         raise AssertionError("; ".join(failures))
-    check_setup_against_cpu(suite)
+    check_setup_against_cpu(
+        suite, REPO / "assets" / "checkpoints_fsai" / "best.msgpack")
 
     # 4b. the structured-grid scaling path
     scaling_launches = check_scaling_path(dev, card)
     check_bands_against_cpu(dev)
 
+    # 4c. the frame-structure family
+    frames_suite, frames_launches = check_frames_path(dev, card)
+    generic = sorted(frames_suite.generic_cases["learned"])
+    range_case = min(set(range(len(frames_suite.data_set))) - set(generic))
+    gj_err = max(gj_err, check_gauss_jordan_frames(frames_suite, card,
+                                                   range_case))
+    check_setup_against_cpu(frames_suite, frames.CHECKPOINT,
+                            cases=(range_case, generic[0]))
+
     # 5. records
     dia_ms, dia_plain_ms = dia_times[B2_MAIN]
+    bsr_ms, bsr_plain_ms = bsr_times[(B3_MAIN, 1)]
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
         "source": "deeppreconditioning_tpu_torch/csrc/gauss_jordan.cu",
         "replaces": "deeppreconditioning_tpu/ops/fsai.py:614",
-        "launches": launches + scaling_launches["gauss_jordan"],
+        "launches": (launches + scaling_launches["gauss_jordan"]
+                     + frames_launches["gauss_jordan"]),
         "max_abs_err": gj_err,
         "ms": gj_ms,
         "plain_ms": gj_plain_ms,
@@ -440,10 +672,20 @@ def main() -> None:
         "route": "cuda",
         "source": "deeppreconditioning_tpu_torch/csrc/dia_spmv.cu",
         "replaces": "deeppreconditioning_tpu/ops/pallas_spmv.py:32",
-        "launches": scaling_launches["dia_spmv"],
+        "launches": (scaling_launches["dia_spmv"]
+                     + roofline_launches["dia_spmv"]),
         "max_abs_err": dia_err,
         "ms": dia_ms,
         "plain_ms": dia_plain_ms,
+    }, {
+        "name": "bsr_spmm",
+        "route": "cuda",
+        "source": "deeppreconditioning_tpu_torch/csrc/bsr_spmm.cu",
+        "replaces": "deeppreconditioning_tpu/ops/pallas_bsr.py:69",
+        "launches": roofline_launches["bsr_spmm"],
+        "max_abs_err": bsr_err,
+        "ms": bsr_ms,
+        "plain_ms": bsr_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

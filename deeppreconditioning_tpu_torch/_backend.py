@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("gauss_jordan", "dia_spmv")
+KERNELS = ("gauss_jordan", "dia_spmv", "bsr_spmm")
 
 _launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _plain_on_cuda: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -157,5 +157,11 @@ def kernel_library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.dp_dia_spmv_f32.restype = ctypes.c_int
+    lib.dp_bsr_spmm_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.dp_bsr_spmm_f32.restype = ctypes.c_int
     _library = lib
     return lib

@@ -11,9 +11,11 @@ success %, and ``dump_csv`` writes the reference's table schema
 Timing: median of ``timing_reps`` synchronized runs after a warm-up
 (``utils/profiling.time_call``: CUDA events on the card).  FSAI plans and
 the dense scaled matrix are input preparation, built outside the timed
-setup and cached, as in the reference.  Only the range-blocked FSAI plan
-is ported: a case whose pattern does not fit it raises
-``NotImplementedError`` naming the generic path.
+setup and cached, as in the reference.  A case whose pattern fits the
+range-blocked plan takes it; any other case falls back to the generic
+``FSAIPlan`` (``generic_cases`` records which, per technique).  As in the
+reference, the generic classical setup computes in the value vector's
+float32 whatever ``dtype`` is.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
     neural_fsai_dense_preconditioner,
 )
 from deeppreconditioning_tpu_torch.ops.fsai import (
+    build_fsai_plan,
     build_range_fsai_plan,
     cap_pattern_spread,
+    fsai_dense_preconditioner,
     fsai_dense_preconditioner_range,
     pattern_col_width,
     tril_power_pattern,
@@ -65,7 +69,7 @@ class BenchmarkSuite:
     """Benchmark learned vs classical preconditioners on a test split.
 
     Args:
-        data_set: ``data.datasets.SludgePatternDataSet``.
+        data_set: ``data.datasets.SludgePatternDataSet`` (either family).
         model: ``NeuralFSAI`` (needed for 'learned'); moved to ``device``
             and ``dtype``.
         device: defaults to the card (``_backend.device()``, which raises
@@ -93,6 +97,7 @@ class BenchmarkSuite:
     totals: dict = field(default_factory=dict)
     successes: dict = field(default_factory=dict)
     setup_calls: dict = field(default_factory=dict)  # device setups run
+    generic_cases: dict = field(default_factory=dict)  # cases on FSAIPlan
 
     def __post_init__(self):
         unknown = set(self.techniques) - set(TECHNIQUES)
@@ -110,6 +115,7 @@ class BenchmarkSuite:
                           self.successes):
                 store[name] = []
             self.setup_calls[name] = 0
+            self.generic_cases[name] = set()
         self._meta_cache = {}
         self._plan_cache = OrderedDict()
 
@@ -200,9 +206,12 @@ class BenchmarkSuite:
         return self._meta_cache[power]
 
     def _fsai_plan(self, index, ell, width=None, power=None):
-        """Per-case range plan, dense scaled A~ (float32, as the reference
-        stores it whatever ``dtype`` is) and float32 scales, on the
-        device; a small LRU cache, since a case's timing reps reuse them.
+        """Per-case FSAI plan and its operand on the device, and float32
+        scales: ``("range", RangeFSAIPlan, dense scaled A~)`` or, for a
+        case whose pattern does not fit the range plan,
+        ``("generic", FSAIPlan, scaled tril value vector)``; the operand
+        is float32, as the reference stores it, whatever ``dtype`` is.  A
+        small LRU cache, since a case's timing reps reuse them.
         ``width`` / ``power`` override the dataset-global width and the
         classical power (a NeuralFSAI checkpoint fixes both)."""
         power = self.fsai_power if power is None else power
@@ -227,32 +236,37 @@ class BenchmarkSuite:
             )
             if spread_cap is not None:
                 pr, pc = cap_pattern_spread(pr, pc, spread_cap)
+        scales = torch.tensor(h.scale, dtype=torch.float32, device=self.device)
         try:
             plan = build_range_fsai_plan(
                 pr, pc, n_pad, width=eff_width, range_h=min(range_h, n_pad),
             )
-        except ValueError as err:
-            raise NotImplementedError(
-                f"case {index} needs the generic FSAIPlan path "
-                "(build_fsai_plan / fsai_values), which is not ported"
-            ) from err
+        except ValueError:
+            plan = build_fsai_plan(r0, c0, pr, pc, n_pad, width=eff_width)
+            cache[key] = ("generic", plan.to(self.device), torch.tensor(
+                h.vals, dtype=torch.float32, device=self.device), scales)
+            return cache[key]
         a_d = np.zeros((n_pad, n_pad))
         a_d[r0, c0] = h.vals
         a_d = a_d + np.tril(a_d, -1).T
-        cache[key] = (
-            plan.to(self.device),
-            torch.tensor(a_d, dtype=torch.float32, device=self.device),
-            torch.tensor(h.scale, dtype=torch.float32, device=self.device),
-        )
+        cache[key] = ("range", plan.to(self.device), torch.tensor(
+            a_d, dtype=torch.float32, device=self.device), scales)
         return cache[key]
 
     def _setup_fsai(self, index, a_sp, ell, need_dense, timing=False):
         n0 = a_sp.shape[0]
-        plan, a_dense, scales = self._fsai_plan(index, ell)
-        d_isqrt = 1.0 / torch.sqrt(scales.to(self.dtype))
-        m = fsai_dense_preconditioner_range(
-            plan, a_dense, d_isqrt=d_isqrt, n0=n0, dtype=self.dtype
-        )
+        kind, plan, operand, scales = self._fsai_plan(index, ell)
+        if kind == "range":
+            d_isqrt = 1.0 / torch.sqrt(scales.to(self.dtype))
+            m = fsai_dense_preconditioner_range(
+                plan, operand, d_isqrt=d_isqrt, n0=n0, dtype=self.dtype
+            )
+        else:
+            self.generic_cases["fsai"].add(index)
+            d_isqrt = 1.0 / torch.sqrt(scales.to(operand.dtype))
+            m = fsai_dense_preconditioner(
+                plan, operand, d_isqrt=d_isqrt, n0=n0, dtype=self.dtype
+            )
         self.setup_calls["fsai"] += 1
         if timing:
             return dense_matvec, m, None, None
@@ -260,12 +274,14 @@ class BenchmarkSuite:
 
     def _setup_learned(self, index, a_sp, ell, need_dense, timing=False):
         n0 = a_sp.shape[0]
-        plan, a_dense, scales = self._fsai_plan(
+        kind, plan, operand, scales = self._fsai_plan(
             index, ell, width=self.model.width,
             power=self.learned_power or None,
         )
+        if kind == "generic":
+            self.generic_cases["learned"].add(index)
         m = neural_fsai_dense_preconditioner(
-            self.model, plan, a_dense, scales, n0, dtype=self.dtype
+            self.model, plan, operand, scales, n0, dtype=self.dtype
         )
         self.setup_calls["learned"] += 1
         if timing:

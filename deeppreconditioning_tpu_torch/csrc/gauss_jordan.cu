@@ -10,21 +10,26 @@
 // row k is replaced by row_k; float32 arithmetic throughout.
 //
 // Layout: sub (N, w, w) row-major, e (N, w), y (N, w), all float32 and
-// contiguous.  The TPU kernel's lane-major (w, w+1, N) layout is not kept.
+// contiguous, 1 <= w <= 63.  The TPU kernel's lane-major (w, w+1, N)
+// layout is not kept.
 //
 // What bounds it on an H100: at w = 24 a system reads 2.4 KB and does
-// about 29 kFLOP (24 steps x 25 columns x 24 rows x 2).  The main path
-// solves N = 1024 systems per case, i.e. 1024 warps in flight, well under
-// the ~8.4k warps that 132 SMs hold, so a launch is bound by latency (the
-// step-to-step dependency chain of shuffles and one division) and by
-// launch overhead, not by HBM bandwidth or FLOPs.
+// about 29 kFLOP (24 steps x 25 columns x 24 rows x 2); at w = 41 (the
+// frame-structure checkpoint) 6.9 KB and about 145 kFLOP.  A per-case
+// setup solves N = n_pad systems (1024 or 768), i.e. that many warps in
+// flight, well under the ~8.4k warps that 132 SMs hold, so a launch is
+// bound by latency (the step-to-step dependency chain of shuffles and one
+// division) and by launch overhead, not by HBM bandwidth or FLOPs.
 //
-// Design: one warp per system.  Lane q < w keeps column q of [S | e] in
-// registers, lane w keeps e; the kernel is templated on W so every
-// register array index is static (fully unrolled, no local-memory spill).
-// At step k lane k's column is broadcast with __shfl_sync, each lane
-// scales its own pivot-row entry and updates its column; afterwards lane
-// w's column is y.  Loads are coalesced (for each row i, lanes read
+// Design: one warp per system.  The w + 1 columns of [S | e] are dealt to
+// the lanes in NC = ceil((w + 1) / 32) sets: lane q keeps columns q,
+// q + 32, ... in registers (col[c][i] is entry i of column q + 32 c), so
+// w <= 31 takes one set and 32 <= w <= 63 two.  The kernel is templated
+// on W so every register array index is static (fully unrolled, no
+// local-memory spill).  At step k lane k % 32 holds column k; its entries
+// are broadcast with __shfl_sync, each lane scales its own pivot-row
+// entries and updates its columns; afterwards column W (the lane W % 32,
+// set W / 32) is y.  Loads are coalesced (for each row i, lanes read
 // consecutive entries).  Four warps per block spread a 1024-system launch
 // over 256 blocks, i.e. over every SM.  Several systems per warp,
 // shared-memory staging or wgmma are later work.
@@ -41,39 +46,55 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 gauss_jordan_kernel(const float* __restrict__ sub,
                     const float* __restrict__ e,
                     float* __restrict__ y, int n) {
+  constexpr int NC = (W + 32) / 32;  // column sets for the W + 1 columns
   const int lane = threadIdx.x & 31;
   const long long sys =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (sys >= n) return;  // the whole warp leaves: shuffles stay full-mask
 
   const float* s = sub + sys * W * W;
-  float col[W];
+  float col[NC][W];
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    col[i] = lane < W ? s[i * W + lane]
-                      : (lane == W ? e[sys * W + i] : 0.0f);
+  for (int c = 0; c < NC; ++c) {
+    const int q = lane + 32 * c;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      col[c][i] = q < W ? s[i * W + q] : (q == W ? e[sys * W + i] : 0.0f);
+    }
   }
 
 #pragma unroll
   for (int k = 0; k < W; ++k) {
-    const float pivot = __shfl_sync(kFullMask, col[k], k);
-    const float row_k = col[k] / pivot;  // this lane's pivot-row entry
+    const int kc = k / 32, kl = k % 32;  // static after unrolling
+    const float pivot = __shfl_sync(kFullMask, col[kc][k], kl);
+    float row_k[NC];  // this lane's pivot-row entries
+#pragma unroll
+    for (int c = 0; c < NC; ++c) row_k[c] = col[c][k] / pivot;
 #pragma unroll
     for (int i = 0; i < W; ++i) {
       if (i == k) continue;
-      const float a_ik = __shfl_sync(kFullMask, col[i], k);  // aug[i][k]
-      col[i] = col[i] - a_ik * row_k;
+      const float a_ik = __shfl_sync(kFullMask, col[kc][i], kl);  // aug[i][k]
+#pragma unroll
+      for (int c = 0; c < NC; ++c) col[c][i] = col[c][i] - a_ik * row_k[c];
     }
-    col[k] = row_k;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) col[c][k] = row_k[c];
   }
 
-  float out = 0.0f;
+  constexpr int ec = W / 32, el = W % 32;  // where column W (y) lives
+  float out[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) out[c] = 0.0f;
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    const float v = __shfl_sync(kFullMask, col[i], W);
-    if (lane == i) out = v;
+    const float v = __shfl_sync(kFullMask, col[ec][i], el);
+    if (lane == i % 32) out[i / 32] = v;
   }
-  if (lane < W) y[sys * W + lane] = out;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int q = lane + 32 * c;
+    if (q < W) y[sys * W + q] = out[c];
+  }
 }
 
 template <int W>
@@ -87,7 +108,7 @@ cudaError_t launch(const float* sub, const float* e, float* y, int n,
 
 }  // namespace
 
-// Solve sub[i] @ y[i] = e[i] for i < n at width w (1 <= w <= 31) on
+// Solve sub[i] @ y[i] = e[i] for i < n at width w (1 <= w <= 63) on
 // `stream`.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int dp_gauss_jordan_f32(const void* sub, const void* e, void* y,
                                    int n, int w, void* stream) {
@@ -106,7 +127,15 @@ extern "C" int dp_gauss_jordan_f32(const void* sub, const void* e, void* y,
     DP_GJ_CASE(17) DP_GJ_CASE(18) DP_GJ_CASE(19) DP_GJ_CASE(20)
     DP_GJ_CASE(21) DP_GJ_CASE(22) DP_GJ_CASE(23) DP_GJ_CASE(24)
     DP_GJ_CASE(25) DP_GJ_CASE(26) DP_GJ_CASE(27) DP_GJ_CASE(28)
-    DP_GJ_CASE(29) DP_GJ_CASE(30) DP_GJ_CASE(31)
+    DP_GJ_CASE(29) DP_GJ_CASE(30) DP_GJ_CASE(31) DP_GJ_CASE(32)
+    DP_GJ_CASE(33) DP_GJ_CASE(34) DP_GJ_CASE(35) DP_GJ_CASE(36)
+    DP_GJ_CASE(37) DP_GJ_CASE(38) DP_GJ_CASE(39) DP_GJ_CASE(40)
+    DP_GJ_CASE(41) DP_GJ_CASE(42) DP_GJ_CASE(43) DP_GJ_CASE(44)
+    DP_GJ_CASE(45) DP_GJ_CASE(46) DP_GJ_CASE(47) DP_GJ_CASE(48)
+    DP_GJ_CASE(49) DP_GJ_CASE(50) DP_GJ_CASE(51) DP_GJ_CASE(52)
+    DP_GJ_CASE(53) DP_GJ_CASE(54) DP_GJ_CASE(55) DP_GJ_CASE(56)
+    DP_GJ_CASE(57) DP_GJ_CASE(58) DP_GJ_CASE(59) DP_GJ_CASE(60)
+    DP_GJ_CASE(61) DP_GJ_CASE(62) DP_GJ_CASE(63)
 #undef DP_GJ_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

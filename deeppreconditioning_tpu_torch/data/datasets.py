@@ -1,4 +1,4 @@
-"""Host dataset of sludge-pattern cases (tril, identity padding, scaling).
+"""Host dataset of FVM or frame cases (tril, identity padding, scaling).
 
 A numpy copy of the host half of ``deeppreconditioning_tpu/data/
 datasets.py``: ``_prepare_sample`` (tril filter, symmetric Jacobi scaling
@@ -7,9 +7,10 @@ A~ = D^-1/2 A D^-1/2, identity padding to ``dof_pad``, (row, col) sort),
 ``dof_max`` / ``dof_pad`` (read from every case, not only the split's).
 No conv plans: those belong to the conv model families.
 
-Cases come from disk (``case_*/matrix.npz`` etc., the layout
-``data/fvm.save_case`` writes) or from memory (a list of ``FVMCase``);
-both give the same host samples.
+Cases come from disk (``<family>/case_*/matrix.npz`` etc., the layout
+``data/fvm.save_case`` writes; the family is ``sludge_patterns`` or
+``frame_structures``) or from memory (a list of ``FVMCase``); both give
+the same host samples.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 
 ROOT: Path = Path("./assets/data/raw/")
+FAMILIES = ("sludge_patterns", "frame_structures")
 
 
 class _HostSample(NamedTuple):
@@ -101,11 +103,11 @@ def _read_case(folder: Path) -> tuple:
 
 
 class SludgePatternDataSet:
-    """Host samples of the sludge-pattern split in case order (batch size
-    1, not shuffled: the benchmark's view of the split).
+    """Host samples of a split in case order (batch size 1, not shuffled:
+    the benchmark's view of the split).
 
     ``cases``: in-memory ``FVMCase`` list in generation order; without it
-    the cases are read from ``root / "sludge_patterns" / case_*``.
+    the cases are read from ``root / family / case_*``.
     ``dof_pad`` is ``round_up(dof_max, 128)`` with ``dof_max`` over every
     case.
     """
@@ -115,14 +117,17 @@ class SludgePatternDataSet:
         stage: str,
         root: Path = ROOT,
         cases: Sequence | None = None,
+        family: str = "sludge_patterns",
     ) -> None:
+        if family not in FAMILIES:
+            raise ValueError(f"family {family!r} not in {FAMILIES}")
         if cases is not None:
             all_items = list(cases)
             dof_max = max(c.matrix.shape[0] for c in all_items)
         else:
-            all_items = sorted((Path(root) / "sludge_patterns").glob("case_*"))
+            all_items = sorted((Path(root) / family).glob("case_*"))
             if not all_items:
-                raise FileNotFoundError(f"no cases under {root}/sludge_patterns")
+                raise FileNotFoundError(f"no cases under {root}/{family}")
             dof_max = 0
             for folder in all_items:
                 with np.load(folder / "matrix.npz") as z:

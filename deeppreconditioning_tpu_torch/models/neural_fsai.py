@@ -3,19 +3,22 @@
 Counterpart of ``deeppreconditioning_tpu/models/neural_fsai.py``.  Three
 parts:
 
-1. FSAI base (``ops/fsai.range_fsai_columns``): Kaporin-optimal column
-   values from batched local solves (kernel B1 on the card).
+1. FSAI base (``ops/fsai.range_fsai_columns`` on a range plan,
+   ``ops/fsai.fsai_values`` on a generic ``FSAIPlan``): Kaporin-optimal
+   column values from batched local solves (kernel B1 on the card).
 2. Per-column refinement MLP over the features
    ``[c / max(|c_diag|, 1e-20), a_col, pos1h, pad]`` (4w inputs):
    ``c_ref = c * exp(alpha) + (1 - pos1h) * beta * c_diag``, masked by
    ``live = (out_rows < n_pad) * (1 - pad)``.
 3. Learned polynomial wrap: q = e0 + q_coeffs (the stored delta), and
-   M = C q(B) q(B)^T C^T with B = C^T A~ C, in Gram form.
+   M = C q(B) q(B)^T C^T with B = C^T A~ C: in Gram form on a range
+   plan, through the dense factor C on a generic plan.
 
 Flax's ``nn.gelu`` is the tanh approximation, hence
 ``nn.GELU(approximate="tanh")``.  ``params_from_jax`` maps a Flax
-parameter tree onto this module's ``state_dict``.  Only the range-plan
-branch is ported; the generic ``FSAIPlan`` branch comes later.
+parameter tree onto this module's ``state_dict``.  The reference's
+``gather="lookup"`` variant (for vmapping over many cases) is not kept:
+the per-case setups gather from the dense matrix.
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ import torch
 from torch import nn
 
 from deeppreconditioning_tpu_torch.ops.fsai import (
+    FSAIPlan,
+    fsai_dense_factor,
+    fsai_dense_from_l0,
+    fsai_values,
+    poly_preconditioner_dense,
     poly_preconditioner_from_gram,
     range_fsai_columns,
     range_m_from_strips,
@@ -44,9 +52,10 @@ class NeuralFSAIOut(NamedTuple):
 class NeuralFSAI(nn.Module):
     """FSAI base + refinement MLP + polynomial wrap (see module docstring).
 
-    ``forward(plan, operand)`` takes a ``RangeFSAIPlan`` on the operand's
-    device and the dense scaled symmetric matrix A~ (n_pad, n_pad).  With
-    zero alpha/beta heads and q_coeffs it reproduces classical FSAI.
+    ``forward(plan, operand)`` takes a plan on the operand's device: a
+    ``RangeFSAIPlan`` with the dense scaled symmetric matrix A~
+    (n_pad, n_pad), or an ``FSAIPlan`` with the scaled tril value vector.
+    With zero alpha/beta heads and q_coeffs it reproduces classical FSAI.
     """
 
     def __init__(self, width: int, hidden: int = 64,
@@ -69,7 +78,9 @@ class NeuralFSAI(nn.Module):
         w = self.width
         if plan.width != w:
             raise ValueError(f"plan width {plan.width} != model width {w}")
-        c, a_col = range_fsai_columns(plan, operand, with_aux=True)
+        columns = fsai_values if isinstance(plan, FSAIPlan) else (
+            range_fsai_columns)
+        c, a_col = columns(plan, operand, with_aux=True)
 
         pad = plan.diag_pad.to(c.dtype)
         pos1h = torch.zeros_like(c).scatter_(1, plan.pos[:, None], 1.0)
@@ -129,10 +140,17 @@ def neural_fsai_dense_preconditioner(
 ) -> torch.Tensor:
     """Deployed single-case setup: model forward -> dense effective
     preconditioner on the RAW system (Jacobi scaling folded, padding
-    masked), assembled in Gram form from strips."""
+    masked); assembled in Gram form from strips on a range plan, through
+    the dense factor on a generic plan."""
     operand = operand.to(dtype)
     out = model(plan, operand)
     d_isqrt = 1.0 / torch.sqrt(scales.to(dtype))
+    if isinstance(plan, FSAIPlan):
+        return poly_preconditioner_dense(
+            fsai_dense_factor(plan, out.c_vals),
+            fsai_dense_from_l0(plan, operand), out.q_coeffs,
+            d_isqrt=d_isqrt, n0=n0,
+        )
     strips = range_strips(plan, out.c_vals)
     s_eff = range_m_from_strips(plan, strips, d_isqrt=d_isqrt, n0=n0)
     d_sqrt = torch.sqrt(scales.to(dtype))

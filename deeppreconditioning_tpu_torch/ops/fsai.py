@@ -8,15 +8,22 @@ lower-triangular C on a fixed pattern with ``C^T A C ~= I``; column j is
 with S_j = {i >= j : (i, j) in pattern}, and M = C C^T ~= A^-1.
 
 Host half (numpy copies of the reference's plan builders, held equal to
-them by ``tests/test_torch_fsai_plan.py``): ``tril_power_pattern``,
+them by ``tests/test_torch_fsai_plan.py`` and
+``tests/test_torch_fsai_generic.py``): ``tril_power_pattern``,
 ``tril_power_pattern_capped``, ``pattern_col_width``,
-``cap_pattern_spread`` and ``build_range_fsai_plan``.
+``cap_pattern_spread``, ``build_range_fsai_plan`` and ``build_fsai_plan``.
 
-Device half (the range-blocked path of banded orderings): slab gather,
-batched local solves through kernel B1 (``ops/gauss_jordan.py``), strips,
-slab-wise Gram assembly and the Gram-form polynomial wrap.  Gathers are
-plain indexing here; the reference's one-hot matmuls were a TPU stand-in
-for them.  The generic ``FSAIPlan`` path is not ported yet.
+Device half, two paths that share the local solves (kernel B1 through
+``ops/gauss_jordan.py``) and the Kaporin normalization:
+- the range-blocked path of banded orderings: slab gather, strips,
+  slab-wise Gram assembly and the Gram-form polynomial wrap;
+- the generic ``FSAIPlan`` path for any pattern (a case whose pattern
+  does not fit a range plan): the dense scaled matrix from the tril value
+  vector, the local blocks gathered from it (``fsai_values``) or looked up
+  in the value vector (``fsai_values_lookup``), a dense factor C and
+  M = C C^T, or the polynomial wrap on C.
+Gathers are plain indexing here; the reference's one-hot matmuls were a
+TPU stand-in for them.
 """
 
 from __future__ import annotations
@@ -222,6 +229,222 @@ def build_range_fsai_plan(
     )
 
 
+@dataclass
+class FSAIPlan:
+    """Generic FSAI plan: any lower-triangular pattern with the diagonal.
+
+    Shapes (n_pad columns, width w, ``sentinel`` = length of the tril value
+    vector the plan indexes):
+        sub_idx: (n_pad, w, w) int64, index into the value vector of
+            A[S_j[p], S_j[q]] (symmetric lookup); ``sentinel`` reads 0.
+        pos: (n_pad,) int64 slot of j inside S_j.
+        out_rows: (n_pad, w) int64, S_j; sentinel n_pad.
+        diag_pad: (n_pad, w) float32, 1 on dead slots.
+        l0_rows, l0_cols: (sentinel,) int64 scatter coordinates of the
+            value vector; its padded tail lands in row n_pad.
+    Arrays are numpy from ``build_fsai_plan``; ``to`` moves them.
+    """
+
+    sub_idx: object
+    pos: object
+    out_rows: object
+    diag_pad: object
+    l0_rows: object
+    l0_cols: object
+
+    @property
+    def n_pad(self) -> int:
+        return self.sub_idx.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.sub_idx.shape[1]
+
+    def to(self, device) -> "FSAIPlan":
+        """The plan as tensors on ``device`` (integers int64)."""
+        def t(x):
+            return torch.as_tensor(np.asarray(x), device=device)
+
+        return FSAIPlan(
+            sub_idx=t(self.sub_idx).long(), pos=t(self.pos).long(),
+            out_rows=t(self.out_rows).long(), diag_pad=t(self.diag_pad),
+            l0_rows=t(self.l0_rows).long(), l0_cols=t(self.l0_cols).long(),
+        )
+
+
+def build_fsai_plan(
+    l0_rows: np.ndarray,
+    l0_cols: np.ndarray,
+    pat_rows: np.ndarray,
+    pat_cols: np.ndarray,
+    n_pad: int,
+    width: int | None = None,
+    sentinel: int | None = None,
+) -> FSAIPlan:
+    """Host build of the generic plan (numpy arrays).
+
+    ``l0_rows / l0_cols``: the tril(A) value-vector sites, sorted by
+    (row, col).  ``pat_rows / pat_cols``: the lower-triangular FSAI
+    pattern.  ``sentinel``: length of the value vector if it is padded
+    past ``len(l0_rows)`` (the padding values must be 0).  Raises
+    ValueError if the sites are not sorted, a column is wider than
+    ``width`` or misses its diagonal.
+    """
+    l0_lin = l0_rows.astype(np.int64) * n_pad + l0_cols
+    if not np.all(l0_lin[:-1] <= l0_lin[1:]):
+        raise ValueError("level-0 sites must be sorted by (row, col)")
+    sentinel_val = l0_rows.shape[0] if sentinel is None else int(sentinel)
+    w = pattern_col_width(pat_rows, pat_cols) if width is None else width
+
+    order = np.argsort(
+        pat_cols.astype(np.int64) * n_pad + pat_rows, kind="stable"
+    )
+    r_s = pat_rows[order].astype(np.int64)
+    c_s = pat_cols[order].astype(np.int64)
+    counts = np.bincount(c_s, minlength=n_pad)
+    if counts.max(initial=0) > w:
+        raise ValueError(
+            f"column width {counts.max()} exceeds static width {w}"
+        )
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    slot = np.arange(r_s.shape[0]) - starts[c_s]
+    s_mat = np.full((n_pad, w), n_pad, np.int64)
+    s_mat[c_s, slot] = r_s
+
+    pos = np.argmax(s_mat == np.arange(n_pad)[:, None], axis=1)
+    if not (s_mat[np.arange(n_pad), pos] == np.arange(n_pad)).all():
+        raise ValueError("FSAI pattern must contain the diagonal")
+
+    # A[S_p, S_q] looked up under the symmetric (hi, lo) key
+    p = s_mat[:, :, None]
+    q = s_mat[:, None, :]
+    in_range = (p < n_pad) & (q < n_pad)
+    key = np.where(in_range, np.maximum(p, q) * n_pad + np.minimum(p, q),
+                   -1).reshape(-1)
+    nnz = l0_lin.shape[0]
+    idx = np.searchsorted(l0_lin, key)
+    idx_c = np.clip(idx, 0, max(nnz - 1, 0))
+    found = (key >= 0) & (idx < nnz) & (l0_lin[idx_c] == key)
+    sub_idx = np.where(found, idx_c, sentinel_val).astype(np.int32)
+
+    sc_rows = np.full(sentinel_val, n_pad, np.int32)
+    sc_cols = np.zeros(sentinel_val, np.int32)
+    sc_rows[:nnz] = l0_rows
+    sc_cols[:nnz] = l0_cols
+    return FSAIPlan(
+        sub_idx=sub_idx.reshape(n_pad, w, w),
+        pos=pos.astype(np.int32),
+        out_rows=s_mat.astype(np.int32),
+        diag_pad=(s_mat == n_pad).astype(np.float32),
+        l0_rows=sc_rows,
+        l0_cols=sc_cols,
+    )
+
+
+# -- device: local solves (both paths) ---------------------------------------
+
+
+def local_systems(plan, sub: torch.Tensor):
+    """The local systems B1 solves: the (n_pad, w, w) blocks A~[S_j, S_j]
+    made identity on dead slots, and e, the one-hot of each column's
+    diagonal slot."""
+    n_pad, w = plan.n_pad, plan.width
+    pad = plan.diag_pad.to(sub.dtype)
+    live = 1.0 - pad
+    sub = sub * live[:, :, None] * live[:, None, :]
+    sub = sub + torch.eye(w, dtype=sub.dtype, device=sub.device) * pad[:, :, None]
+    e = torch.zeros((n_pad, w), dtype=sub.dtype, device=sub.device)
+    e.scatter_(1, plan.pos[:, None], 1.0)
+    return sub.contiguous(), e
+
+
+def _fsai_solve_columns(plan, sub: torch.Tensor, with_aux: bool = False):
+    """Shared tail of the FSAI setups: ``local_systems``, kernel B1 for
+    the local solves, the Kaporin normalization.  ``with_aux`` also
+    returns a_col[j, k] = A~[S_j[k], j]."""
+    n_pad, w = plan.n_pad, plan.width
+    sub, e = local_systems(plan, sub)
+    y = masked_gauss_jordan(sub, e)
+    y_pos = y.gather(1, plan.pos[:, None])[:, 0]
+    c = y / torch.sqrt(torch.clamp(y_pos, min=1e-30))[:, None]
+    c = torch.where(plan.out_rows < n_pad, c, 0.0)
+    if with_aux:
+        a_col = sub.gather(2, plan.pos[:, None, None].expand(n_pad, w, 1))
+        return c, a_col[:, :, 0] * (1.0 - plan.diag_pad.to(sub.dtype))
+    return c
+
+
+# -- device: generic path ----------------------------------------------------
+
+
+def fsai_dense_from_l0(plan: FSAIPlan, l0_vals: torch.Tensor) -> torch.Tensor:
+    """Dense symmetric scaled matrix A~ from the tril value vector (the
+    padded tail lands in a dropped row n_pad)."""
+    n_pad = plan.n_pad
+    a = l0_vals.new_zeros((n_pad + 1, n_pad))
+    a.index_put_((plan.l0_rows, plan.l0_cols), l0_vals, accumulate=True)
+    a = a[:n_pad]
+    return a + torch.tril(a, -1).T
+
+
+def fsai_values(plan: FSAIPlan, l0_vals: torch.Tensor,
+                with_aux: bool = False):
+    """Column values of C (n_pad, w) on the generic plan: entry [j, k] is
+    C[S_j[k], j], 0 on dead slots.  The local blocks A~[S_j, S_j] are
+    gathered from the dense scaled matrix."""
+    a_dense = fsai_dense_from_l0(plan, l0_vals)
+    s_safe = plan.out_rows.clamp(max=plan.n_pad - 1)
+    sub = a_dense[s_safe[:, :, None], s_safe[:, None, :]]
+    return _fsai_solve_columns(plan, sub, with_aux)
+
+
+def fsai_values_lookup(plan: FSAIPlan, l0_vals: torch.Tensor,
+                       with_aux: bool = False):
+    """``fsai_values`` through the plan's ``sub_idx`` lookup in the value
+    vector: O(n_pad w^2) memory, no dense matrix; the same output."""
+    vals_ext = torch.cat([l0_vals, l0_vals.new_zeros(1)])
+    idx = plan.sub_idx.clamp(max=vals_ext.shape[0] - 1)
+    return _fsai_solve_columns(plan, vals_ext[idx], with_aux)
+
+
+def fsai_dense_factor(plan: FSAIPlan, c_vals: torch.Tensor,
+                      d_isqrt: torch.Tensor | None = None,
+                      n0: int | None = None) -> torch.Tensor:
+    """Dense lower-triangular C from the column values; optionally folds
+    the Jacobi scaling (C_raw = D^-1/2 C) and masks rows and columns
+    >= n0."""
+    n_pad = plan.n_pad
+    j_idx = torch.arange(n_pad, device=c_vals.device)[:, None].expand(
+        plan.out_rows.shape)
+    c = c_vals.new_zeros((n_pad + 1, n_pad))
+    c.index_put_((plan.out_rows, j_idx), c_vals, accumulate=True)
+    c = c[:n_pad]
+    if d_isqrt is not None:
+        c = d_isqrt[:, None] * c
+    if n0 is not None:
+        mask = torch.arange(n_pad, device=c.device) < n0
+        c = torch.where(mask[:, None] & mask[None, :], c, 0.0)
+    return c
+
+
+def fsai_dense_preconditioner(
+    plan: FSAIPlan,
+    l0_vals: torch.Tensor,
+    d_isqrt: torch.Tensor | None = None,
+    n0: int | None = None,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Generic FSAI setup: dense M = C C^T (Jacobi scaling folded, rows
+    and columns >= n0 masked), computed in ``l0_vals``' dtype and cast to
+    ``dtype``, as the reference does."""
+    c = fsai_dense_factor(plan, fsai_values(plan, l0_vals), d_isqrt, n0)
+    m = c @ c.T
+    if n0 is not None:
+        mask = torch.arange(plan.n_pad, device=m.device) < n0
+        m = torch.where(mask[:, None] & mask[None, :], m, 0.0)
+    return m.to(dtype)
+
+
 # -- device: range-blocked setup ---------------------------------------------
 
 
@@ -231,40 +454,27 @@ def _windows(plan: RangeFSAIPlan) -> torch.Tensor:
                                            device=plan.lo.device)
 
 
-def range_fsai_columns(plan: RangeFSAIPlan, a_dense: torch.Tensor,
-                       with_aux: bool = False):
-    """FSAI column values (n_pad, w) via the range-blocked path.
-
-    One advanced-indexing gather of the (B, H, H) slabs of the dense
-    scaled matrix, a gather of each column's (w, w) local block from its
-    slab, identity on dead slots, kernel B1 for the local solves, then
-    the Kaporin normalization.  ``with_aux`` also returns
-    a_col[j, k] = A~[S_j[k], j].
-    """
-    n_pad, h, w, jb = plan.n_pad, plan.h, plan.width, plan.block_cols
+def range_local_blocks(plan: RangeFSAIPlan,
+                       a_dense: torch.Tensor) -> torch.Tensor:
+    """The (n_pad, w, w) local blocks A~[S_j, S_j] of the range path: one
+    advanced-indexing gather of the (B, H, H) slabs of the dense scaled
+    matrix, then each column's block from its slab (dead slots read a
+    slab entry that ``local_systems`` masks)."""
+    n_pad, h, jb = plan.n_pad, plan.h, plan.block_cols
     win = _windows(plan)
     slabs = a_dense[win[:, :, None], win[:, None, :]]  # (B, H, H)
-
-    # sub[j, p, q] = slab_blk(j)[local[j, p], local[j, q]]; sentinel
-    # slots (local == H) read 0, like the reference's all-zero one-hot
     blk = torch.arange(n_pad, device=a_dense.device) // jb
     loc = plan.local.clamp(max=h - 1)
-    sub = slabs[blk[:, None, None], loc[:, :, None], loc[:, None, :]]
-    pad = plan.diag_pad.to(a_dense.dtype)
-    live = 1.0 - pad
-    sub = sub * live[:, :, None] * live[:, None, :]
-    sub = sub + torch.eye(w, dtype=sub.dtype, device=sub.device) * pad[:, :, None]
+    return slabs[blk[:, None, None], loc[:, :, None], loc[:, None, :]]
 
-    e = torch.zeros((n_pad, w), dtype=sub.dtype, device=sub.device)
-    e.scatter_(1, plan.pos[:, None], 1.0)
-    y = masked_gauss_jordan(sub.contiguous(), e)
-    y_pos = y.gather(1, plan.pos[:, None])[:, 0]
-    c = y / torch.sqrt(torch.clamp(y_pos, min=1e-30))[:, None]
-    c = torch.where(plan.out_rows < n_pad, c, 0.0)
-    if with_aux:
-        a_col = sub.gather(2, plan.pos[:, None, None].expand(n_pad, w, 1))
-        return c, a_col[:, :, 0] * live
-    return c
+
+def range_fsai_columns(plan: RangeFSAIPlan, a_dense: torch.Tensor,
+                       with_aux: bool = False):
+    """FSAI column values (n_pad, w) via the range-blocked path:
+    ``range_local_blocks``, then ``_fsai_solve_columns``.  ``with_aux``
+    also returns a_col[j, k] = A~[S_j[k], j]."""
+    return _fsai_solve_columns(plan, range_local_blocks(plan, a_dense),
+                               with_aux)
 
 
 def range_strips(plan: RangeFSAIPlan, c_vals: torch.Tensor) -> torch.Tensor:
@@ -317,6 +527,39 @@ def fsai_dense_preconditioner_range(
     c_vals = range_fsai_columns(plan, a_dense)
     strips = range_strips(plan, c_vals)
     return range_m_from_strips(plan, strips, d_isqrt, n0)
+
+
+def poly_preconditioner_dense(
+    c_dense: torch.Tensor,  # (n, n) scaled-space factor C~
+    a_dense: torch.Tensor,  # (n, n) scaled symmetric A~
+    q_coeffs: torch.Tensor,  # (d+1,) coefficients of q
+    d_isqrt: torch.Tensor | None = None,
+    n0: int | None = None,
+) -> torch.Tensor:
+    """Polynomial-wrapped FSAI, materialized dense:
+
+        M~ = C q(B) q(B)^T C^T,   B = C^T A~ C
+
+    (SPD for any q; q = I gives C C^T), q evaluated by Horner, then the
+    Jacobi scaling folded (D^-1/2 M~ D^-1/2) and rows and columns >= n0
+    masked.  Full float32 products on the card (TF32 off)."""
+    dtype = c_dense.dtype
+    n = c_dense.shape[0]
+    q_coeffs = q_coeffs.to(dtype)
+    bmat = c_dense.T @ (a_dense.to(dtype) @ c_dense)
+    eye = torch.eye(n, dtype=dtype, device=c_dense.device)
+    q = eye * q_coeffs[-1]
+    for i in range(q_coeffs.shape[0] - 2, -1, -1):
+        q = q @ bmat + q_coeffs[i] * eye
+    cq = c_dense @ q
+    m = cq @ cq.T
+    if d_isqrt is not None:
+        d = d_isqrt.to(dtype)
+        m = d[:, None] * m * d[None, :]
+    if n0 is not None:
+        mask = torch.arange(n, device=m.device) < n0
+        m = torch.where(mask[:, None] & mask[None, :], m, 0.0)
+    return m
 
 
 def poly_preconditioner_from_gram(

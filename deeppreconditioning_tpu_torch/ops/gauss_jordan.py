@@ -8,7 +8,7 @@ Dispatch follows the tensor: a CPU tensor takes the plain PyTorch version
 (``masked_gauss_jordan_torch``); a CUDA tensor launches the hand-written
 kernel ``csrc/gauss_jordan.cu`` (which replaces the TPU kernel
 ``ops/fsai.py::_gj_kernel``) or raises.  There is no fallback from the
-kernel to the plain version, and no width gate: 1 <= w <= 31.
+kernel to the plain version, and no width gate: 1 <= w <= 63.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 
 from deeppreconditioning_tpu_torch import _backend
 
-MAX_WIDTH = 31  # w + 1 columns of [S | e] must fit in one warp's lanes
+MAX_WIDTH = 63  # w + 1 columns of [S | e] in at most two per warp lane
 
 
 def masked_gauss_jordan_torch(sub: torch.Tensor,
@@ -40,11 +40,9 @@ def masked_gauss_jordan_torch(sub: torch.Tensor,
     return aug[..., :, w]
 
 
-def gauss_jordan_cuda(sub: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B1 on the current stream; raises on anything it does
-    not take (device, dtype, shape, contiguity, w > 31) and on a refused
-    launch."""
-    lib = _backend.kernel_library()
+def check_gauss_jordan_args(sub: torch.Tensor, e: torch.Tensor) -> None:
+    """Raise ValueError on anything kernel B1 does not take: device,
+    dtype, shape, contiguity, w outside 1..MAX_WIDTH."""
     if sub.device.type != "cuda" or e.device != sub.device:
         raise ValueError("gauss_jordan_cuda needs sub and e on one CUDA "
                          f"device, got {sub.device} and {e.device}")
@@ -61,6 +59,14 @@ def gauss_jordan_cuda(sub: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
         raise ValueError("sub and e must be contiguous")
     if n >= 2**31:
         raise ValueError(f"{n} systems exceed the kernel's int count")
+
+
+def gauss_jordan_cuda(sub: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B1 on the current stream; raises on anything it does
+    not take (``check_gauss_jordan_args``) and on a refused launch."""
+    lib = _backend.kernel_library()
+    check_gauss_jordan_args(sub, e)
+    n, w = sub.shape[0], sub.shape[1]
     y = torch.empty((n, w), dtype=sub.dtype, device=sub.device)
     if n == 0:
         return y

@@ -86,3 +86,24 @@ def test_dataset_host_samples_match_jax(tmp_path, stage):
                 np.testing.assert_allclose(getattr(got, name),
                                            getattr(want, name),
                                            rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("seed, kwargs", [
+    (0, {"mesh_cells": 1}),
+    (1, {"mesh_cells": 2}),
+    (2, {"mesh_cells": 2, "permute": True}),
+    (3, {"mesh_cells": 1, "castellated": False}),
+    (7, {"dims": (12, 10, 9), "max_cells": 12 ** 3, "solve": False}),
+])
+def test_generate_sludge_case_3d_matches_jax(seed, kwargs):
+    rng_a, rng_b = np.random.default_rng(seed), np.random.default_rng(seed)
+    ours = fvm.generate_sludge_case_3d(rng_a, **kwargs)
+    ref = jax_fvm.generate_sludge_case_3d(rng_b, **kwargs)
+    assert ours.shape_2d == ref.shape_2d
+    np.testing.assert_array_equal(ours.matrix.row, ref.matrix.row)
+    np.testing.assert_array_equal(ours.matrix.col, ref.matrix.col)
+    np.testing.assert_array_equal(ours.matrix.data, ref.matrix.data)
+    np.testing.assert_array_equal(ours.rhs, ref.rhs)
+    np.testing.assert_allclose(ours.solution, ref.solution, rtol=1e-12,
+                               atol=1e-15)
+    assert rng_a.random() == rng_b.random()  # the streams stay in step

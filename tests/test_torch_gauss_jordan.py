@@ -1,7 +1,8 @@
 """Kernel B1 (batched Gauss–Jordan) of the PyTorch port against the JAX
 reference: the plain version against ``_masked_gauss_jordan_xla`` (f64)
 and against the Pallas ``_gj_kernel`` in interpret mode (f32), the CUDA
-kernel against the plain version on a card, and the no-fallback rule.
+kernel against the plain version on a card, the kernel's argument checks,
+the widths of the committed checkpoints, and the no-fallback rule.
 
 JAX is imported inside the tests that use it, so the CUDA test also runs
 on a machine without JAX:
@@ -10,6 +11,7 @@ on a machine without JAX:
 
 import types
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,11 +20,15 @@ import torch
 from deeppreconditioning_tpu_torch import _backend
 from deeppreconditioning_tpu_torch.ops import gauss_jordan
 from deeppreconditioning_tpu_torch.ops.gauss_jordan import (
+    MAX_WIDTH,
+    check_gauss_jordan_args,
     masked_gauss_jordan,
     masked_gauss_jordan_torch,
 )
+from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
 
-WIDTHS = (4, 8, 13, 24)
+REPO = Path(__file__).resolve().parents[1]
+WIDTHS = (4, 8, 13, 24, 41, 63)
 
 
 def _systems(w, n, seed):
@@ -102,6 +108,75 @@ def test_cuda_kernel_matches_plain(w, cuda_device):
     assert _backend.launch_counts()["gauss_jordan"] == before + 1
     ref = masked_gauss_jordan_torch(sub, rhs)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+
+
+def test_committed_checkpoint_widths_fit_the_kernel():
+    """Every committed checkpoint that records a static width (the width
+    of the local systems its setups hand to B1) is one B1 takes: the
+    frame-structure checkpoint's 41 included."""
+    widths = {}
+    for path in sorted(REPO.glob("assets/checkpoints*/*.msgpack")):
+        payload = load_checkpoint(path)
+        if "width" in payload:
+            widths[path.relative_to(REPO).as_posix()] = int(payload["width"])
+    assert len(widths) == 14, widths
+    assert widths["assets/checkpoints_frames/best.msgpack"] == 41
+    too_wide = {p: w for p, w in widths.items() if not 1 <= w <= MAX_WIDTH}
+    assert not too_wide, too_wide
+
+
+class _OnCard:
+    """A CPU tensor that reports ``cuda:0`` as its device, so the argument
+    checks run to their end here."""
+
+    def __init__(self, t):
+        self._t = t
+        self.device = torch.device("cuda", 0)
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _args(n=4, w=6, dtype=torch.float32):
+    return torch.zeros((n, w, w), dtype=dtype), torch.zeros((n, w),
+                                                            dtype=dtype)
+
+
+@pytest.mark.parametrize("w", [1, 31, 32, 41, MAX_WIDTH])
+def test_argument_checks_accept(w):
+    sub, e = _args(w=w)
+    check_gauss_jordan_args(_OnCard(sub), _OnCard(e))
+
+
+@pytest.mark.parametrize("case, match", [
+    ("cpu", "CUDA device"),
+    ("float64", "float32 only"),
+    ("not_square", "must be"),
+    ("rhs_shape", "e must be"),
+    ("too_wide", "outside 1..63"),
+    ("empty_width", "outside 1..63"),
+    ("strided", "contiguous"),
+])
+def test_argument_checks_refuse(case, match):
+    sub, e = _args()
+    if case == "cpu":
+        args = (sub, e)
+    elif case == "float64":
+        args = _args(dtype=torch.float64)
+    elif case == "not_square":
+        args = (torch.zeros((4, 6, 5)), e)
+    elif case == "rhs_shape":
+        args = (sub, torch.zeros((4, 5)))
+    elif case == "too_wide":
+        args = _args(w=MAX_WIDTH + 1)
+    elif case == "empty_width":
+        args = _args(w=0)
+    else:
+        args = (torch.zeros((4, 6, 12))[:, :, ::2], e)
+    if case != "cpu":
+        args = tuple(_OnCard(t) for t in args)
+    with pytest.raises(ValueError, match=match):
+        check_gauss_jordan_args(*args)
 
 
 def test_cuda_call_without_library_raises(monkeypatch):

@@ -131,3 +131,74 @@ def test_untrained_model_is_classical_fsai():
     )
     torch.testing.assert_close(m, 0.5 * (m_fsai + m_fsai.T), rtol=1e-12,
                                atol=0.0)
+
+
+FRAMES = (Path(__file__).resolve().parents[1] / "assets"
+          / "checkpoints_frames" / "best.msgpack")
+FRAMES_N_PAD = 640
+
+
+def _frames_case():
+    """A frame-structure case on the generic plan (power 2, w 41): its
+    pattern's block row spread (311) does not fit a range plan."""
+    from deeppreconditioning_tpu_torch.data.frames import generate_frame_case
+
+    case = generate_frame_case(np.random.default_rng(3), solve=False)
+    m = case.matrix
+    h = _prepare_sample(m.row, m.col, m.data, case.solution, case.rhs,
+                        FRAMES_N_PAD)
+    pr, pc = fsai.tril_power_pattern(h.rows, h.cols, FRAMES_N_PAD, power=2)
+    args = (h.rows, h.cols, pr, pc, FRAMES_N_PAD)
+    plan = fsai.build_fsai_plan(*args, width=41)
+    ref = jax_fsai.build_fsai_plan(*args, width=41)
+    return h.vals, h.scale, h.original_size, plan.to("cpu"), ref
+
+
+def _frames_models():
+    payload = flax.serialization.msgpack_restore(FRAMES.read_bytes())
+    jax_model = JaxNeuralFSAI(width=int(payload["width"]),
+                              hidden=int(payload["hidden"]),
+                              poly_degree=int(payload["poly_degree"]))
+    model = neural_fsai_from_checkpoint(load_checkpoint(FRAMES)).double()
+    return jax_model, payload["params"], model
+
+
+def test_frames_checkpoint_carries_across():
+    payload = flax.serialization.msgpack_restore(FRAMES.read_bytes())
+    _assert_same_tree(load_checkpoint(FRAMES), payload)
+    assert (payload["width"], payload["hidden"], payload["poly_degree"],
+            payload["power"]) == (41, 64, 2, 2)
+    state = params_from_jax(payload["params"])
+    model = neural_fsai_from_checkpoint(load_checkpoint(FRAMES))
+    assert (model.width, model.hidden, model.poly_degree) == (41, 64, 2)
+    assert state["dense0.weight"].shape == (64, 4 * 41)
+    for name, value in model.state_dict().items():
+        np.testing.assert_array_equal(value.numpy(), state[name].numpy())
+
+
+def test_generic_forward_matches_jax():
+    vals, _, _, plan, ref = _frames_case()
+    jax_model, params, model = _frames_models()
+    want = jax_model.apply(params, ref, jnp.asarray(vals))
+    with torch.no_grad():
+        got = model(plan, torch.tensor(vals))
+    np.testing.assert_allclose(got.c_vals.numpy(), np.asarray(want.c_vals),
+                               rtol=1e-9,
+                               atol=1e-12 * np.abs(want.c_vals).max())
+    np.testing.assert_allclose(got.q_coeffs.numpy(),
+                               np.asarray(want.q_coeffs), rtol=1e-12)
+
+
+def test_generic_dense_preconditioner_matches_jax():
+    vals, scale, n0, plan, ref = _frames_case()
+    jax_model, params, model = _frames_models()
+    want = np.asarray(jax_dense_m(jax_model, params, ref, jnp.asarray(vals),
+                                  jnp.asarray(scale), n0,
+                                  dtype=jnp.float64))
+    with torch.no_grad():
+        got = neural_fsai_dense_preconditioner(
+            model, plan, torch.tensor(vals), torch.tensor(scale), n0,
+            dtype=torch.float64,
+        )
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9,
+                               atol=1e-9 * np.abs(want).max())

@@ -1,14 +1,24 @@
-"""The committed JAX reference counts (``scripts/torch_port_reference.py``)
-describe the split the port builds: same seed, case count, ``n_pad`` and
-range height H.  Host work only; the card compares the counts
-themselves (``chip_smoke.py``)."""
+"""The committed JAX reference counts (``scripts/torch_port_reference.py``,
+``scripts/torch_port_frames_reference.py``) describe the splits the port
+builds: same seed, case count, ``n_pad``, widths and range height H.  The
+card compares the counts themselves (``chip_smoke.py``); on the CPU the
+port's frames suite reproduces them on three cases, generic plans
+included."""
 
 import json
 from pathlib import Path
 
-import torch  # noqa: F401  (the port's modules sit beside torch)
+import pytest
+import torch
 
 from deeppreconditioning_tpu_torch.bench.__main__ import generate_cases
+from deeppreconditioning_tpu_torch.bench.frames import (
+    CHECKPOINT,
+    FSAI_POWER,
+    SAMPLES,
+    SEED,
+    frames_suite,
+)
 from deeppreconditioning_tpu_torch.bench.suite import BenchmarkSuite
 from deeppreconditioning_tpu_torch.data.datasets import SludgePatternDataSet
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
@@ -40,3 +50,66 @@ def test_fixture_describes_the_port_split():
     for name in ("vanilla", "jacobi", "fsai", "learned"):
         assert len(fixture["iterations"][name]) == len(ds)
         assert all(fixture["success"][name])
+
+
+FRAMES_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+                  / "frames_iterations.json")
+
+
+@pytest.fixture(scope="module")
+def frames():
+    """The frames fixture and the port's frames suite (CPU, float32, as
+    the fixture's JAX run) over the same 40-case split."""
+    fixture = json.loads(FRAMES_FIXTURE.read_text())
+    return fixture, frames_suite("cpu", dtype=torch.float32)
+
+
+def test_frames_fixture_describes_the_port_split(frames):
+    fixture, suite = frames
+    payload = load_checkpoint(CHECKPOINT)
+    ds = suite.data_set
+    assert (fixture["seed"], fixture["samples"], fixture["family"]) == (
+        SEED, SAMPLES, "frame_structures")
+    assert len(ds) == fixture["cases"] == 40
+    assert ds.dof_pad == fixture["n_pad"] == 768
+    assert fixture["fsai_power"] == suite.fsai_power == FSAI_POWER
+    assert fixture["learned_power"] == suite.learned_power == int(
+        payload["power"])
+    assert fixture["check_every"] == suite.check_every
+    assert (fixture["rtol"], fixture["max_iter"]) == (suite.rtol,
+                                                      suite.max_iter)
+    width, range_h, _, _ = suite._fsai_meta(ds.dof_pad, FSAI_POWER)
+    assert (width, range_h) == (fixture["widths"]["fsai"],
+                                fixture["range_h"]) == (41, 256)
+    assert fixture["widths"]["learned"] == int(payload["width"]) == 41
+    assert len(fixture["generic_cases"]["fsai"]) == 9
+    for name in ("vanilla", "jacobi", "fsai", "learned"):
+        assert len(fixture["iterations"][name]) == len(ds)
+        assert len(fixture["success"][name]) == len(ds)
+
+
+# Per-case iterations may differ from the JAX CPU float32 run by this
+# much: fsai and learned not at all; jacobi by the card's per-case bound;
+# unpreconditioned float32 CG drifts on these stiff systems (ROADMAP C).
+ALLOWED = {"vanilla": lambda ref: 0.05 * ref, "jacobi": lambda ref: 2,
+           "fsai": lambda ref: 0, "learned": lambda ref: 0}
+
+
+@pytest.mark.parametrize("index", [0, 2, 25])
+def test_port_frames_cases_match_the_fixture(frames, index):
+    """The port's suite on the CPU in float32 takes the same plan kind as
+    the JAX run and converges as it does (0 and 2 are generic cases, 25 a
+    range case)."""
+    fixture, suite = frames
+    _, ell, b = suite._system(index)
+    for name, allowed in ALLOWED.items():
+        with torch.no_grad():
+            res = suite._solve(ell, b, *suite.setup(name, index))
+        ref = fixture["iterations"][name][index]
+        assert abs(int(res.iterations) - ref) <= allowed(ref), (
+            name, int(res.iterations), ref)
+        assert bool(float(res.residual) < suite.rtol) == (
+            fixture["success"][name][index])
+    for name in ("fsai", "learned"):
+        generic = index in fixture["generic_cases"][name]
+        assert (index in suite.generic_cases[name]) == generic, name
