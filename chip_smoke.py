@@ -7,28 +7,39 @@ Phases (each raises on failure):
   1. device: a CUDA device is required; print the card's name and power
      limit as nvidia-smi reports them;
   2. build: compile and load the CUDA kernels from ``csrc/`` (nvcc, one
-     process per source, in parallel);
+     process per source, in parallel); print each source's nvcc time and
+     ptxas's registers, stack and spills per kernel instance, and fail on
+     any spill in B1's or B3's instances;
   3. kernel B1 (batched Gauss–Jordan) against its plain PyTorch version
-     at w in {4, 8, 13, 24, 31, 32, 41, 63} and N in {1024, 131072},
-     float32, within rtol 1e-4 / atol 1e-6; kernel and plain times (CUDA
-     events, median of 20); after phase 4c also on the real w-41 local
+     at w in {4, 8, 13, 24, 31, 32, 41, 63} and N in {1024, 131072} and at
+     the scaling path's launches (w 13 and 4, N = 262144), float32, within
+     rtol 1e-4 / atol 1e-6; after phase 4c also on the real w-41 local
      systems of a frames case's range plan;
   3b. kernel B2 (DIA SpMV) against its plain PyTorch version on
      ``poisson_dia`` at 512^2, 128^3 and 256^3, on the 13-band halves
      (c_up, c_low) of a 128^3 structured FSAI factor and on the Galerkin
      coarse operators of the 128^3 scaling operator, float32, within
-     |kernel - plain| <= 1e-6 + 1e-5 |plain|; kernel and plain times
-     (CUDA events, median of 20); the SpMV section's cold and resident
-     GB/s and HBM share;
+     |kernel - plain| <= 1e-6 + 1e-5 |plain|; the SpMV section's cold and
+     resident GB/s and HBM share;
   3c. kernel B3 (BSR SpMV / SpMM) against its plain PyTorch version on the
      four BSR operators of the SpMV roofline at block size 128 (m = 1)
      and on the frame operator at m in {8, 128}, float32, within
-     |kernel - plain| <= 1e-5 max|plain| + 1e-6; kernel and plain times
-     (CUDA events, median of 20); then the roofline path through its
-     entry point's sections (``python -m
+     |kernel - plain| <= 1e-5 max|plain| + 1e-6; then the roofline path
+     through its entry point's sections (``python -m
      deeppreconditioning_tpu_torch.bench.roofline``: the B2 sweep at 64^3
      .. 256^3 beside the stencil, the B3 rows), cold and resident, with
-     B2 and B3 launched and no plain version run on the card;
+     B2 and B3 launched and no plain version run on the card.
+     In phases 3, 3b and 3c every (kernel, shape) is timed three ways in
+     turns (``measure``): per call (CUDA events around one call, median of
+     20), kernel only (``utils.profiling.time_graph``: 20 launches back to
+     back in a CUDA graph) and the one PyTorch library call for the same
+     function, timed here only (B1 ``torch.linalg.solve_ex``, B2 a
+     ``torch.sparse_csr_tensor`` of the operator, B3 a
+     ``torch.sparse_bsr_tensor`` of the non-sentinel blocks), beside the
+     plain version and the bound from ``utils.profiling`` (bytes or
+     operations; B3 on its non-sentinel blocks, at m > 1 against the
+     3xTF32 roof with the float32 roof beside it); a kernel-only time above
+     its per-call time (by more than 5%) fails;
   4. the per-case main path through the entry point
      (``python -m deeppreconditioning_tpu_torch.bench``'s ``run``): 500
      sludge-pattern cases from seed 69420, the 100-case test split, the
@@ -65,8 +76,10 @@ Phases (each raises on failure):
      on the card, the reference's table header; fsai and learned M of a range
      case and a generic case on the card agree with the port's CPU
      float64 path to 1e-4 (relative to max |M|);
-  5. the card line, one JSON line of kernel records, and the last line
-     ``{"ok": true, "device": {...}}``.
+  5. the launches per path, the card line, one JSON line of kernel records
+     (per kernel at its main shape: per-call ``ms``, ``kernel_only_ms``,
+     ``bound_ms``, ``bound_by``, ``library_ms``, ``plain_ms``), and the
+     last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -133,7 +146,12 @@ from deeppreconditioning_tpu_torch.train.checkpoint import (  # noqa: E402
     load_checkpoint,
 )
 from deeppreconditioning_tpu_torch.utils.profiling import (  # noqa: E402
+    bsr_work,
+    card_peaks,
+    dia_work,
+    gauss_jordan_work,
     time_call,
+    time_graph,
 )
 
 FIXTURE = REPO / "tests" / "fixtures" / "torch_port" / "percase_iterations.json"
@@ -141,6 +159,15 @@ RESULTS = REPO / "build" / "chip_smoke_results"
 GJ_WIDTHS = (4, 8, 13, 24, 31, 32, 41, 63)
 GJ_SIZES = (1024, 131072)
 GJ_MAIN_SHAPE = (1024, 24)  # (N, w) of one main-path setup
+GJ_PATH = ((13, 262144), (4, 262144))  # (w, N) of a scaling-path launch
+# Kernel-only may exceed per call by timer noise on kernels that take
+# longer than their launch; more means the two spans measured different work.
+KERNEL_ONLY_SLACK = 1.05
+PTXAS_FUNCTION = re.compile(
+    r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) "
+    r"bytes spill stores, (\d+) bytes spill loads\n[^\n]*?Used (\d+) "
+    r"registers")
+NO_SPILL_SOURCES = ("gauss_jordan.cu", "bsr_spmm.cu")
 GJ_RTOL, GJ_ATOL = 1e-4, 1e-6
 M_RTOL = 1e-4  # card float32 setup vs CPU float64 setup, relative to max|M|
 # BENCH_r05 per-case mean iterations, measured on a TPU v5e: context only
@@ -190,36 +217,84 @@ def spd_systems(rng, n, w):
     return a, e
 
 
+def measure(label, kernel, plain, library, work, dev, card, *,
+            tensor_cores=False):
+    """Time one (kernel, shape) three ways in turns, inside this call:
+    per call (CUDA events around one call, median of 20: what a path
+    pays), kernel only (``time_graph``: launches back to back in a CUDA
+    graph), the one PyTorch library call for the same function (per call)
+    and the plain version (per call); print
+    them beside the bound of ``work``.  Fails if the kernel-only time
+    exceeds the per-call time by more than KERNEL_ONLY_SLACK (the span
+    would have measured something else).  Returns the record, in ms."""
+    peaks = card_peaks(torch.cuda.get_device_name(dev))
+    per_call = time_call(kernel, dev, reps=20)
+    only = time_graph(kernel, dev)
+    lib = time_call(library, dev, reps=20)
+    plain_s = time_call(plain, dev, reps=20)
+    # A tensor-core kernel is held to the 3xTF32 roof, the float32 roof
+    # beside it.
+    bound, roof = work.bound(peaks.hbm_gb_s, peaks.tf32x3_tflop_s
+                             if tensor_cores else peaks.fp32_tflop_s)
+    rec = {"ms": per_call * 1e3, "kernel_only_ms": only * 1e3,
+           "bound_ms": bound * 1e3, "bound_by": roof,
+           "library_ms": lib * 1e3,
+           "plain_ms": plain_s * 1e3}
+    extra = ""
+    if tensor_cores:
+        fp32_bound, fp32_roof = work.bound(peaks.hbm_gb_s, peaks.fp32_tflop_s)
+        extra = (f" at the 3xTF32 roof; float32 roof {fp32_bound * 1e3:.4f}"
+                 f" ms ({fp32_roof})"
+                 + (", beaten" if only < fp32_bound else ""))
+    print(f"{label}: per call {per_call * 1e3:.4f} ms, kernel only "
+          f"{only * 1e3:.4f} ms, bound {bound * 1e3:.4f} ms ({roof}; "
+          f"{work.bytes} B, {work.flops} flop{extra}), share of bound "
+          f"{bound / only:.3f}; library {lib * 1e3:.4f} ms, plain "
+          f"{plain_s * 1e3:.4f} ms [{card}]")
+    if only > per_call * KERNEL_ONLY_SLACK:
+        raise AssertionError(f"{label}: kernel-only {only * 1e3:.4f} ms "
+                             f"exceeds per call {per_call * 1e3:.4f} ms")
+    return rec
+
+
 def check_gauss_jordan(dev, card):
+    """Phase 3: B1 against its plain version at every checked (w, N), and
+    its times beside the bound and ``torch.linalg.solve_ex``."""
     rng = np.random.default_rng(0)
-    max_err, main_times = 0.0, None
-    for w in GJ_WIDTHS:
-        a, e = spd_systems(rng, max(GJ_SIZES), w)
-        for n in GJ_SIZES:
-            sub = torch.tensor(a[:n], device=dev)
-            rhs = torch.tensor(e[:n], device=dev)
-            got = masked_gauss_jordan(sub, rhs)
-            torch.cuda.synchronize()
-            ref = masked_gauss_jordan_torch(sub, rhs)
-            diff = (got - ref).abs()
-            err = float(diff.max())
-            if not bool(torch.isfinite(got).all()) or bool(
-                    (diff > GJ_ATOL + GJ_RTOL * ref.abs()).any()):
-                raise AssertionError(
-                    f"B1 disagrees with its plain version at w={w} N={n}: "
-                    f"max abs err {err}")
-            max_err = max(max_err, err)
-            k_s = time_call(lambda: masked_gauss_jordan(sub, rhs), dev,
-                            reps=20)
-            p_s = time_call(lambda: masked_gauss_jordan_torch(sub, rhs), dev,
-                            reps=20)
-            if (n, w) == GJ_MAIN_SHAPE:
-                main_times = (k_s * 1e3, p_s * 1e3)
-            print(f"B1 w={w:2d} N={n:6d}: max abs err {err:.3e} "
-                  f"(rtol {GJ_RTOL}, atol {GJ_ATOL}); kernel "
-                  f"{k_s * 1e3:.4f} ms, plain {p_s * 1e3:.4f} ms [{card}]")
-            del sub, rhs, got, ref, diff
-    return max_err, main_times
+    max_err, records = 0.0, {}
+    shapes = [(w, n) for w in GJ_WIDTHS for n in GJ_SIZES] + list(GJ_PATH)
+    for w, n in shapes:
+        a, e = spd_systems(rng, n, w)
+        sub = torch.tensor(a, device=dev)
+        rhs = torch.tensor(e, device=dev)
+        del a, e
+        err = check_gauss_jordan_on(sub, rhs, f"w={w} N={n}")
+        max_err = max(max_err, err)
+        records[(n, w)] = measure(
+            f"B1 w={w:2d} N={n:6d} (max abs err {err:.3e}, rtol {GJ_RTOL},"
+            f" atol {GJ_ATOL})",
+            lambda: masked_gauss_jordan(sub, rhs),
+            lambda: masked_gauss_jordan_torch(sub, rhs),
+            lambda: torch.linalg.solve_ex(sub, rhs[..., None]),
+            gauss_jordan_work(n, w), dev, card)
+        del sub, rhs
+    return max_err, records
+
+
+def check_gauss_jordan_on(sub, rhs, label):
+    """B1 against its plain version on (sub, rhs); returns the max abs
+    error, raises beyond rtol GJ_RTOL / atol GJ_ATOL."""
+    got = masked_gauss_jordan(sub, rhs)
+    torch.cuda.synchronize()
+    ref = masked_gauss_jordan_torch(sub, rhs)
+    diff = (got - ref).abs()
+    err = float(diff.max())
+    if not bool(torch.isfinite(got).all()) or bool(
+            (diff > GJ_ATOL + GJ_RTOL * ref.abs()).any()):
+        raise AssertionError(
+            f"B1 disagrees with its plain version at {label}: max abs err "
+            f"{err}")
+    return err
 
 
 def check_dia_spmv(dev, card):
@@ -251,14 +326,15 @@ def check_dia_spmv(dev, card):
                     f"B2 disagrees with its plain version on {name}: max "
                     f"abs err {err}")
             max_err = max(max_err, err)
-            k_s = time_call(lambda: dia_matvec(a, x), dev, reps=20)
-            p_s = time_call(lambda: a.matvec(x), dev, reps=20)
-            times[name] = (k_s * 1e3, p_s * 1e3)
-            print(f"B2 {name:<20} n_pad {a.n_pad:>8d} bands "
-                  f"{len(a.offsets):2d}: max abs err {err:.3e} (rtol "
-                  f"{B2_RTOL}, atol {B2_ATOL}); kernel {k_s * 1e3:.4f} ms, "
-                  f"plain {p_s * 1e3:.4f} ms [{card}]")
-            del x, got, ref, diff
+            csr = dia_csr(a)
+            times[name] = measure(
+                f"B2 {name:<20} n_pad {a.n_pad:>8d} bands "
+                f"{len(a.offsets):2d} (max abs err {err:.3e}, rtol {B2_RTOL},"
+                f" atol {B2_ATOL}; library CSR nnz {csr.values().numel()})",
+                lambda: dia_matvec(a, x), lambda: a.matvec(x),
+                lambda: csr @ x, dia_work(len(a.offsets), a.n_pad), dev,
+                card)
+            del x, got, ref, diff, csr
         for row in spmv_section(dev, operators):
             print(f"SpMV {row['name']:<20} " + "; ".join(
                 f"{p} {row[p]['time_us']:.2f} us {row[p]['gnnz_per_s']:.2f}"
@@ -266,6 +342,40 @@ def check_dia_spmv(dev, card):
                 f"{row[p]['bandwidth_fraction']:.3f}"
                 for p in ("cold", "resident")) + f" [{card}]")
     return max_err, times
+
+
+def dia_csr(a):
+    """The DIA operator as one ``torch.sparse_csr_tensor`` (its nonzeros,
+    int32 indices, columns sorted in each row): the library yardstick of
+    B2, never called by the port."""
+    order = sorted(range(len(a.offsets)), key=lambda d: a.offsets[d])
+    n = a.n_pad
+    rows = torch.arange(n, device=a.vals.device)
+    cols = torch.stack([rows + a.offsets[d] for d in order], dim=1)
+    vals = a.vals[order].T
+    keep = (cols >= 0) & (cols < n) & (vals != 0)
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=a.vals.device)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    return torch.sparse_csr_tensor(crow, cols[keep].int(), vals[keep],
+                                   (n, n))
+
+
+def bsr_library(a):
+    """The stored non-sentinel blocks of a ``BSRMatrix`` as one
+    ``torch.sparse_bsr_tensor`` (block columns sorted in each row): the
+    library yardstick of B3, never called by the port."""
+    r, s = a.n_block_rows, a.slots
+    cols = a.block_cols.long()
+    live = (cols >= 0) & (cols < r)
+    rows = torch.arange(r, device=cols.device)[:, None].expand(r, s)
+    key = torch.where(live, rows * (r + 1) + cols, (r + 1) * (r + 1))
+    take = torch.argsort(key.reshape(-1))[:int(live.sum())]
+    crow = torch.zeros(r + 1, dtype=torch.int32, device=cols.device)
+    crow[1:] = torch.cumsum(live.sum(1), 0)
+    bs = a.block_size
+    return torch.sparse_bsr_tensor(
+        crow, cols.reshape(-1)[take].int(),
+        a.blocks.reshape(r * s, bs, bs)[take], (a.n_pad, a.n_pad))
 
 
 def check_scaling_path(dev, card):
@@ -396,6 +506,7 @@ def check_bsr_spmm(dev, card):
     with torch.no_grad():
         for name, a, nnz in operators:
             widths = (1,) + (B3_WIDE if name == B3_MAIN else ())
+            library = bsr_library(a)
             for m in widths:
                 shape = (a.n_pad,) if m == 1 else (a.n_pad, m)
                 x = torch.tensor(rng.standard_normal(shape, dtype=np.float32),
@@ -416,14 +527,18 @@ def check_bsr_spmm(dev, card):
                         f"B3 disagrees with its plain version on {name} "
                         f"m={m}: max abs err {err} > {bound}")
                 max_err = max(max_err, err)
-                k_s = time_call(kernel, dev, reps=20)
-                p_s = time_call(plain, dev, reps=20)
-                times[(name, m)] = (k_s * 1e3, p_s * 1e3)
-                print(f"B3 {name:<18} R {a.n_block_rows:4d} S {a.slots:2d} "
-                      f"bs {a.block_size} m {m:3d}: max abs err {err:.3e} "
-                      f"(bound {bound:.3e}); kernel {k_s * 1e3:.4f} ms, "
-                      f"plain {p_s * 1e3:.4f} ms [{card}]")
+                lib_err = float((library @ x - ref).abs().max())
+                times[(name, m)] = measure(
+                    f"B3 {name:<18} R {a.n_block_rows:4d} S {a.slots:2d} bs "
+                    f"{a.block_size} m {m:3d} (max abs err {err:.3e}, limit "
+                    f"{bound:.3e}; library BSR {library.values().shape[0]} "
+                    f"blocks, max abs err {lib_err:.3e})",
+                    kernel, plain, lambda: library @ x,
+                    bsr_work(library.values().shape[0], a.n_pad,
+                             a.block_size, m), dev,
+                    card, tensor_cores=m > 1)
                 del x, got, ref
+            del library
     return max_err, times, operators
 
 
@@ -536,23 +651,37 @@ def check_gauss_jordan_frames(suite, card, index):
         raise AssertionError(f"frames case {index} is not a range case")
     with torch.no_grad():
         sub, e = local_systems(plan, range_local_blocks(plan, a_dense))
-        got = masked_gauss_jordan(sub, e)
-        torch.cuda.synchronize()
-        ref = masked_gauss_jordan_torch(sub, e)
-    diff = (got - ref).abs()
-    err = float(diff.max())
-    k_s = time_call(lambda: masked_gauss_jordan(sub, e), sub.device, reps=20)
-    p_s = time_call(lambda: masked_gauss_jordan_torch(sub, e), sub.device,
-                    reps=20)
-    print(f"B1 on frames case {index}'s local systems (N {sub.shape[0]}, w "
-          f"{sub.shape[1]}): max abs err {err:.3e} (rtol {GJ_RTOL}, atol "
-          f"{GJ_ATOL}); kernel {k_s * 1e3:.4f} ms, plain {p_s * 1e3:.4f} ms "
-          f"[{card}]")
-    if sub.shape[1] != 41 or not bool(torch.isfinite(got).all()) or bool(
-            (diff > GJ_ATOL + GJ_RTOL * ref.abs()).any()):
-        raise AssertionError("B1 disagrees with its plain version on the "
-                             "frames systems")
+        n, w = sub.shape[:2]
+        if w != 41:
+            raise AssertionError(f"frames systems of width {w}, not 41")
+        err = check_gauss_jordan_on(sub, e, f"frames case {index}")
+        measure(f"B1 on frames case {index}'s local systems (N {n}, w {w}; "
+                f"max abs err {err:.3e}, rtol {GJ_RTOL}, atol {GJ_ATOL})",
+                lambda: masked_gauss_jordan(sub, e),
+                lambda: masked_gauss_jordan_torch(sub, e),
+                lambda: torch.linalg.solve_ex(sub, e[..., None]),
+                gauss_jordan_work(n, w), sub.device, card)
     return err
+
+
+def build_report(build_s):
+    """Phase 2's record: the build's wall time, each source's nvcc time,
+    and ptxas's registers and spills per kernel instance; fails on any
+    spill in B1's or B3's instances."""
+    print(f"build: {build_s:.1f} s (0 if cached); nvcc per source "
+          + ", ".join(f"{src} {s:.1f} s"
+                      for src, s in sorted(_backend.build_seconds.items())))
+    spills = []
+    for section in _backend.build_log.split("--- ")[1:]:
+        source, text = section.split("\n", 1)
+        for fn, stack, stores, loads, regs in PTXAS_FUNCTION.findall(text):
+            print(f"ptxas {source} {fn}: {regs} registers, {stack} bytes "
+                  f"stack, {stores} bytes spill stores, {loads} bytes spill "
+                  f"loads")
+            if source in NO_SPILL_SOURCES and int(stores) + int(loads):
+                spills.append(fn)
+    if spills:
+        raise AssertionError(f"ptxas spilled registers in {spills}")
 
 
 def main() -> None:
@@ -566,19 +695,10 @@ def main() -> None:
     # 2. build
     t0 = time.perf_counter()
     _backend.kernel_library()
-    build_s = time.perf_counter() - t0
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers",
-                                       _backend.build_log)]
-    spilled = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes "
-                         r"stack frame, ([1-9]\d*) bytes spill stores",
-                         _backend.build_log)
-    print(f"build: {build_s:.1f} s (0 if cached); ptxas: {len(regs)} "
-          f"kernels, max {max(regs, default=0)} registers, "
-          f"{sum(int(b) for _, b in spilled)} spill bytes"
-          + "".join(f"; {b} in {name}" for name, b in spilled))
+    build_report(time.perf_counter() - t0)
 
     # 3. kernels against their plain versions
-    gj_err, (gj_ms, gj_plain_ms) = check_gauss_jordan(dev, card)
+    gj_err, gj_times = check_gauss_jordan(dev, card)
     dia_err, dia_times = check_dia_spmv(dev, card)
     bsr_err, bsr_times, bsr_ops = check_bsr_spmm(dev, card)
 
@@ -654,19 +774,20 @@ def main() -> None:
                             cases=(range_case, generic[0]))
 
     # 5. records
-    dia_ms, dia_plain_ms = dia_times[B2_MAIN]
-    bsr_ms, bsr_plain_ms = bsr_times[(B3_MAIN, 1)]
+    paths = {"per-case": {"gauss_jordan": launches},
+             "scaling": scaling_launches, "roofline": roofline_launches,
+             "frames": frames_launches}
+    print("launches per path: " + "; ".join(
+        f"{path} {counts}" for path, counts in paths.items()))
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",
         "route": "cuda",
         "source": "deeppreconditioning_tpu_torch/csrc/gauss_jordan.cu",
         "replaces": "deeppreconditioning_tpu/ops/fsai.py:614",
-        "launches": (launches + scaling_launches["gauss_jordan"]
-                     + frames_launches["gauss_jordan"]),
+        "launches": sum(c.get("gauss_jordan", 0) for c in paths.values()),
         "max_abs_err": gj_err,
-        "ms": gj_ms,
-        "plain_ms": gj_plain_ms,
+        **gj_times[GJ_MAIN_SHAPE],
     }, {
         "name": "dia_spmv",
         "route": "cuda",
@@ -675,8 +796,7 @@ def main() -> None:
         "launches": (scaling_launches["dia_spmv"]
                      + roofline_launches["dia_spmv"]),
         "max_abs_err": dia_err,
-        "ms": dia_ms,
-        "plain_ms": dia_plain_ms,
+        **dia_times[B2_MAIN],
     }, {
         "name": "bsr_spmm",
         "route": "cuda",
@@ -684,8 +804,7 @@ def main() -> None:
         "replaces": "deeppreconditioning_tpu/ops/pallas_bsr.py:69",
         "launches": roofline_launches["bsr_spmm"],
         "max_abs_err": bsr_err,
-        "ms": bsr_ms,
-        "plain_ms": bsr_plain_ms,
+        **bsr_times[(B3_MAIN, 1)],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

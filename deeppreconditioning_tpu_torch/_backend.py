@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -43,6 +44,7 @@ _launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _plain_on_cuda: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _library: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output (ptxas register/spill report)
+build_seconds: dict[str, float] = {}  # source name -> seconds of its nvcc
 
 
 def device() -> torch.device:
@@ -97,17 +99,26 @@ def _build(sources: list[Path], lib_path: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{lib_path.stem}.{os.getpid()}"
     objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-    procs = [
-        subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for src, obj in zip(sources, objects)
-    ]
+    outputs = [obj.with_suffix(".log") for obj in objects]
+    t0 = time.perf_counter()
+    procs = []
+    for src, obj, out in zip(sources, objects, outputs):
+        with out.open("w") as fio:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=fio, stderr=subprocess.STDOUT,
+            ))
+    pending = dict(zip(sources, procs))
+    while pending:
+        for src, proc in list(pending.items()):
+            if proc.poll() is not None:
+                build_seconds[src.name] = time.perf_counter() - t0
+                del pending[src]
+        time.sleep(0.05)
     logs, failed = [], False
-    for src, proc in zip(sources, procs):
-        out, _ = proc.communicate()
-        logs.append(f"--- {src.name}\n{out}")
+    for src, proc, out in zip(sources, procs, outputs):
+        logs.append(f"--- {src.name}\n{out.read_text()}")
+        out.unlink()
         failed |= proc.returncode != 0
     log = "".join(logs)
     if failed:

@@ -57,8 +57,10 @@ def check_bsr_args(a: BSRMatrix, x: torch.Tensor) -> int:
     if not (blocks.is_contiguous() and cols.is_contiguous()
             and x.is_contiguous()):
         raise ValueError("blocks, block_cols and x must be contiguous")
-    if m == 1 and (x.data_ptr() % 16 or blocks.data_ptr() % 16):
-        raise ValueError("x and blocks must be 16-byte aligned for m = 1")
+    if blocks.data_ptr() % 16:
+        raise ValueError("blocks must be 16-byte aligned")
+    if m == 1 and x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned for m = 1")
     return m
 
 

@@ -8,7 +8,10 @@ Dispatch follows the tensor: a CPU tensor takes the plain PyTorch version
 (``masked_gauss_jordan_torch``); a CUDA tensor launches the hand-written
 kernel ``csrc/gauss_jordan.cu`` (which replaces the TPU kernel
 ``ops/fsai.py::_gj_kernel``) or raises.  There is no fallback from the
-kernel to the plain version, and no width gate: 1 <= w <= 63.
+kernel to the plain version, and no width gate: 1 <= w <= 63.  The
+kernel is built for the widths ``INSTANCE_WIDTHS`` and runs a call of
+width w on ``instance_width(w)``, padding inside the kernel (identity rows,
+zero right-hand side), which leaves y[:, :w] exactly as at width w.
 """
 
 from __future__ import annotations
@@ -17,7 +20,16 @@ import torch
 
 from deeppreconditioning_tpu_torch import _backend
 
-MAX_WIDTH = 63  # w + 1 columns of [S | e] in at most two per warp lane
+MAX_WIDTH = 63
+INSTANCE_WIDTHS = (4, 8, 16, 24, 32, 42, 48, 64)  # the kernel's widths
+
+
+def instance_width(w: int) -> int:
+    """The built width a call of width w (1..MAX_WIDTH) runs on: the
+    smallest instance width >= w (``dp_gauss_jordan_f32``'s dispatch)."""
+    if not 1 <= w <= MAX_WIDTH:
+        raise ValueError(f"width {w} outside 1..{MAX_WIDTH}")
+    return next(width for width in INSTANCE_WIDTHS if width >= w)
 
 
 def masked_gauss_jordan_torch(sub: torch.Tensor,
@@ -42,7 +54,8 @@ def masked_gauss_jordan_torch(sub: torch.Tensor,
 
 def check_gauss_jordan_args(sub: torch.Tensor, e: torch.Tensor) -> None:
     """Raise ValueError on anything kernel B1 does not take: device,
-    dtype, shape, contiguity, w outside 1..MAX_WIDTH."""
+    dtype, shape, contiguity, 16-byte alignment (its copies), w outside
+    1..MAX_WIDTH."""
     if sub.device.type != "cuda" or e.device != sub.device:
         raise ValueError("gauss_jordan_cuda needs sub and e on one CUDA "
                          f"device, got {sub.device} and {e.device}")
@@ -57,6 +70,8 @@ def check_gauss_jordan_args(sub: torch.Tensor, e: torch.Tensor) -> None:
         raise ValueError(f"width {w} outside 1..{MAX_WIDTH}")
     if not (sub.is_contiguous() and e.is_contiguous()):
         raise ValueError("sub and e must be contiguous")
+    if sub.data_ptr() % 16 or e.data_ptr() % 16:
+        raise ValueError("sub and e must be 16-byte aligned")
     if n >= 2**31:
         raise ValueError(f"{n} systems exceed the kernel's int count")
 

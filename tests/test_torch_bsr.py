@@ -2,8 +2,10 @@
 ``from_scipy`` / ``from_blocks`` arrays equal to the reference's, the plain
 version against ``BSRMatrix.matvec`` (f64) and against the Pallas
 ``bsr_matmat_pallas`` / ``bsr_matvec_pallas`` in interpret mode (f32), the
-wrapper's CPU dispatch and argument checks, the CUDA kernel against the
-plain version on a card, and the no-fallback rule.
+wrapper's CPU dispatch and argument checks, why the m > 1
+kernel splits its TF32 products in three (an emulation on the CPU), the
+CUDA kernel against the plain version on a card, and the no-fallback
+rule.
 
 JAX is imported inside the tests that use it, so the CUDA tests also run
 on a machine without JAX:
@@ -200,6 +202,8 @@ def test_argument_checks_accept(bs, m, want):
     ("x_rows", "x must be"),
     ("x_empty", "x must be"),
     ("strided", "contiguous"),
+    ("blocks_misaligned", "16-byte aligned"),
+    ("x_misaligned", "16-byte aligned"),
 ])
 def test_argument_checks_refuse(case, match):
     blocks, cols, x = _args()
@@ -219,6 +223,10 @@ def test_argument_checks_refuse(case, match):
         x = torch.zeros((48, 0))
     elif case == "strided":
         x = torch.zeros((48, 2))[:, 0]
+    elif case == "blocks_misaligned":
+        blocks = torch.zeros(3 * 2 * 16 * 16 + 1)[1:].reshape(3, 2, 16, 16)
+    elif case == "x_misaligned":
+        x = torch.zeros(49)[1:]
     if case == "cpu":
         args = (BSRMatrix(blocks=blocks, block_cols=cols, n=48), x)
     else:
@@ -234,9 +242,55 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _tf32(a):
+    """TF32 as the tensor cores read a float32: the 13 low mantissa bits
+    masked off."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xffffe000)).view(np.float32)
+
+
+def _split(a):
+    """B3's split: hi = tf32(a), lo = a - hi (exact), read as tf32(lo)."""
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+@pytest.mark.parametrize("m", [8, 128])
+def test_three_tf32_products_hold_the_kernel_tolerance(m):
+    """On a small frame operator, the 3xTF32 products of B3's m > 1 path
+    (a_lo b_hi + a_hi b_lo + a_hi b_hi, products exact, as the tensor
+    cores form them) stay within B3's tolerance of the float64 product,
+    1e-5 max|Y| + 1e-6; single-pass TF32 (a_hi b_hi) does not."""
+    from deeppreconditioning_tpu_torch.bench.roofline import frame_operator
+
+    a, _ = frame_operator((4, 4, 3), block_size=32)
+    blocks = a.blocks.numpy()
+    cols = a.block_cols.numpy()
+    r, bs = a.n_block_rows, a.block_size
+    x = np.random.default_rng(m).standard_normal((a.n_pad, m)).astype(
+        np.float32)
+    xb = np.concatenate([x.reshape(r, bs, m), np.zeros((1, bs, m),
+                                                       np.float32)])
+    gathered = xb[cols]  # (R, S, bs, m); the sentinel's block is zero
+    a_hi, a_lo = _split(blocks)
+    x_hi, x_lo = _split(gathered)
+
+    def product(p, q):
+        return np.einsum("rsij,rsjm->rim", p.astype(np.float64),
+                         q.astype(np.float64)).reshape(a.n_pad, m)
+
+    want = product(blocks, gathered)
+    tol = 1e-5 * np.abs(want).max() + 1e-6
+    three = (product(a_lo, x_hi) + product(a_hi, x_lo)
+             + product(a_hi, x_hi)).astype(np.float32)
+    single = product(a_hi, x_hi).astype(np.float32)
+    assert np.abs(three - want).max() <= tol
+    assert np.abs(single - want).max() > tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs", [16, 32, 64, 128])
-@pytest.mark.parametrize("m", [None, 1, 8, 40])
+@pytest.mark.parametrize("m", [None, 1, 2, 3, 8, 40, 128, 130])
 def test_cuda_kernel_matches_plain(bs, m, cuda_device):
     a = BSRMatrix.from_scipy(_fvm(), block_size=bs, device=cuda_device)
     rng = np.random.default_rng(bs)

@@ -1,8 +1,10 @@
 """Kernel B1 (batched Gauss–Jordan) of the PyTorch port against the JAX
 reference: the plain version against ``_masked_gauss_jordan_xla`` (f64)
-and against the Pallas ``_gj_kernel`` in interpret mode (f32), the CUDA
-kernel against the plain version on a card, the kernel's argument checks,
-the widths of the committed checkpoints, and the no-fallback rule.
+and against the Pallas ``_gj_kernel`` in interpret mode (f32), the
+kernel's width instances and the exactness of its identity padding, the
+CUDA kernel against the plain version on a card, the kernel's argument
+checks, the widths of the committed checkpoints, and the no-fallback
+rule.
 
 JAX is imported inside the tests that use it, so the CUDA test also runs
 on a machine without JAX:
@@ -20,8 +22,10 @@ import torch
 from deeppreconditioning_tpu_torch import _backend
 from deeppreconditioning_tpu_torch.ops import gauss_jordan
 from deeppreconditioning_tpu_torch.ops.gauss_jordan import (
+    INSTANCE_WIDTHS,
     MAX_WIDTH,
     check_gauss_jordan_args,
+    instance_width,
     masked_gauss_jordan,
     masked_gauss_jordan_torch,
 )
@@ -29,6 +33,10 @@ from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
 
 REPO = Path(__file__).resolve().parents[1]
 WIDTHS = (4, 8, 13, 24, 41, 63)
+# Every instance width and the widths just past each, as the kernel
+# rounds them up: 1..4 -> 4, 5..8 -> 8, ..., 49..63 -> 64.
+CUDA_WIDTHS = (1, 4, 5, 8, 9, 13, 16, 17, 24, 25, 31, 32, 33, 41, 42, 43,
+               48, 49, 63)
 
 
 def _systems(w, n, seed):
@@ -96,8 +104,39 @@ def test_plain_matches_pallas_interpret_f32(w):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("w", [1, 4, 13, 24, 31, 32, 41, 63])
+def test_identity_padding_to_the_instance_width_is_exact(w):
+    """The kernel runs width w on instance width W >= w with identity rows
+    and a zero right-hand side in slots w..W-1: the plain version on the
+    padded systems gives y[:, :w] bit for bit, and zeros past w."""
+    big = instance_width(w)
+    a, e = _systems(w, 256, seed=300 + w)
+    sub = torch.tensor(a, dtype=torch.float32)
+    rhs = torch.tensor(e, dtype=torch.float32)
+    pad_sub = torch.eye(big).repeat(256, 1, 1)
+    pad_sub[:, :w, :w] = sub
+    pad_rhs = torch.zeros((256, big))
+    pad_rhs[:, :w] = rhs
+    want = masked_gauss_jordan_torch(sub, rhs)
+    got = masked_gauss_jordan_torch(pad_sub, pad_rhs)
+    assert torch.equal(got[:, :w], want)
+    assert not got[:, w:].any()
+
+
+def test_instance_widths_cover_every_width():
+    assert INSTANCE_WIDTHS == tuple(sorted(INSTANCE_WIDTHS))
+    for w in range(1, MAX_WIDTH + 1):
+        big = instance_width(w)
+        assert big >= w and big in INSTANCE_WIDTHS
+        smaller = [x for x in INSTANCE_WIDTHS if x < big]
+        assert not smaller or smaller[-1] < w  # the smallest that fits
+    for bad in (0, MAX_WIDTH + 1):
+        with pytest.raises(ValueError, match="outside"):
+            instance_width(bad)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("w", CUDA_WIDTHS)
 def test_cuda_kernel_matches_plain(w, cuda_device):
     a, e = _systems(w, 1024, seed=200 + w)
     sub = torch.tensor(a, dtype=torch.float32, device=cuda_device)
@@ -156,6 +195,7 @@ def test_argument_checks_accept(w):
     ("too_wide", "outside 1..63"),
     ("empty_width", "outside 1..63"),
     ("strided", "contiguous"),
+    ("misaligned", "16-byte aligned"),
 ])
 def test_argument_checks_refuse(case, match):
     sub, e = _args()
@@ -171,8 +211,10 @@ def test_argument_checks_refuse(case, match):
         args = _args(w=MAX_WIDTH + 1)
     elif case == "empty_width":
         args = _args(w=0)
-    else:
+    elif case == "strided":
         args = (torch.zeros((4, 6, 12))[:, :, ::2], e)
+    else:
+        args = (sub, torch.zeros(4 * 6 + 1)[1:].reshape(4, 6))
     if case != "cpu":
         args = tuple(_OnCard(t) for t in args)
     with pytest.raises(ValueError, match=match):
