@@ -14,9 +14,8 @@ median of 10 timed runs per case, dense kappa for the first case.  Writes
 ``table.csv`` / ``totals.csv`` under ``assets/results/torch/frames/`` and
 prints the per-technique means.
 
-Not here yet: ``incomplete_cholesky`` (ROADMAP A16) and the batched
-protocol (``run_batched``, ROADMAP A9).  Needs a CUDA device; there is no
-CPU path here.
+Not here yet: the script's ``incomplete_cholesky`` row and its batched
+protocol (ROADMAP A19).  Needs a CUDA device; there is no CPU path here.
 """
 
 from __future__ import annotations
@@ -29,7 +28,6 @@ import torch
 from deeppreconditioning_tpu_torch import _backend
 from deeppreconditioning_tpu_torch.bench.suite import (
     RESULTS_DIRECTORY,
-    TECHNIQUES,
     BenchmarkSuite,
 )
 from deeppreconditioning_tpu_torch.data.datasets import SludgePatternDataSet
@@ -43,6 +41,7 @@ REPO = Path(__file__).resolve().parents[2]
 SEED = 69422  # scripts/frames_bench.py's data seed
 SAMPLES = 200
 FSAI_POWER = 2
+TECHNIQUES = ("vanilla", "jacobi", "fsai", "learned")
 CHECKPOINT = REPO / "assets" / "checkpoints_frames" / "best.msgpack"
 RESULTS = RESULTS_DIRECTORY / "frames"
 TIMING_REPS = 10

@@ -8,8 +8,8 @@ A~ = D^-1/2 A D^-1/2, identity padding to ``dof_pad``, (row, col) sort),
 No conv plans: those belong to the conv model families.
 
 Cases come from disk (``<family>/case_*/matrix.npz`` etc., the layout
-``data/fvm.save_case`` writes; the family is ``sludge_patterns`` or
-``frame_structures``) or from memory (a list of ``FVMCase``); both give
+``data/fvm.save_case`` writes; the family is ``sludge_patterns``,
+``sludge_patterns_3d`` or ``frame_structures``) or from memory (a list of ``FVMCase``); both give
 the same host samples.
 """
 
@@ -21,7 +21,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 
 ROOT: Path = Path("./assets/data/raw/")
-FAMILIES = ("sludge_patterns", "frame_structures")
+FAMILIES = ("sludge_patterns", "sludge_patterns_3d", "frame_structures")
 
 
 class _HostSample(NamedTuple):

@@ -4,7 +4,7 @@ Counterpart of ``deeppreconditioning_tpu/models/neural_fsai.py``.  Three
 parts:
 
 1. FSAI base (``ops/fsai.range_fsai_columns`` on a range plan,
-   ``ops/fsai.fsai_values`` on a generic ``FSAIPlan``): Kaporin-optimal
+   ``ops/fsai.fsai_values_lookup`` on a generic ``FSAIPlan``): Kaporin-optimal
    column values from batched local solves (kernel B1 on the card).
 2. Per-column refinement MLP over the features
    ``[c / max(|c_diag|, 1e-20), a_col, pos1h, pad]`` (4w inputs):
@@ -16,9 +16,12 @@ parts:
 
 Flax's ``nn.gelu`` is the tanh approximation, hence
 ``nn.GELU(approximate="tanh")``.  ``params_from_jax`` maps a Flax
-parameter tree onto this module's ``state_dict``.  The reference's
-``gather="lookup"`` variant (for vmapping over many cases) is not kept:
-the per-case setups gather from the dense matrix.
+parameter tree onto this module's ``state_dict``.  The forward also takes
+a group of plans (``ops/fsai.stack_plans``) with one operand per case,
+the reference's vmapped ``model.apply`` of the batched protocol: one B1
+launch for the whole group.  A generic plan's local blocks are always
+looked up in the value vector, the reference's ``gather="lookup"`` form
+(its default gather from the dense matrix gives the same values).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from deeppreconditioning_tpu_torch.ops.fsai import (
     FSAIPlan,
     fsai_dense_factor,
     fsai_dense_from_l0,
-    fsai_values,
+    fsai_values_lookup,
     poly_preconditioner_dense,
     poly_preconditioner_from_gram,
     range_fsai_columns,
@@ -54,8 +57,10 @@ class NeuralFSAI(nn.Module):
 
     ``forward(plan, operand)`` takes a plan on the operand's device: a
     ``RangeFSAIPlan`` with the dense scaled symmetric matrix A~
-    (n_pad, n_pad), or an ``FSAIPlan`` with the scaled tril value vector.
-    With zero alpha/beta heads and q_coeffs it reproduces classical FSAI.
+    (n_pad, n_pad), or an ``FSAIPlan`` with the scaled tril value vector;
+    or a group of such plans with the operands stacked, and then returns
+    per-case outputs with a leading case axis.  With zero alpha/beta
+    heads and q_coeffs it reproduces classical FSAI.
     """
 
     def __init__(self, width: int, hidden: int = 64,
@@ -78,15 +83,15 @@ class NeuralFSAI(nn.Module):
         w = self.width
         if plan.width != w:
             raise ValueError(f"plan width {plan.width} != model width {w}")
-        columns = fsai_values if isinstance(plan, FSAIPlan) else (
-            range_fsai_columns)
+        columns = (fsai_values_lookup if isinstance(plan, FSAIPlan)
+                   else range_fsai_columns)
         c, a_col = columns(plan, operand, with_aux=True)
 
         pad = plan.diag_pad.to(c.dtype)
-        pos1h = torch.zeros_like(c).scatter_(1, plan.pos[:, None], 1.0)
-        c_diag = c.gather(1, plan.pos[:, None])  # (n_pad, 1)
+        pos1h = torch.zeros_like(c).scatter_(-1, plan.pos[..., None], 1.0)
+        c_diag = c.gather(-1, plan.pos[..., None])  # (..., n_pad, 1)
         denom = torch.clamp(c_diag.abs(), min=1e-20)
-        feats = torch.cat([c / denom, a_col, pos1h, pad], dim=1)
+        feats = torch.cat([c / denom, a_col, pos1h, pad], dim=-1)
 
         h = self.act(self.dense0(feats))
         h = self.act(self.dense1(h))
@@ -99,7 +104,8 @@ class NeuralFSAI(nn.Module):
 
         q0 = torch.zeros(self.poly_degree + 1, dtype=c.dtype, device=c.device)
         q0[0] = 1.0
-        return NeuralFSAIOut(c_vals=c_out, q_coeffs=q0 + self.q_coeffs)
+        q = (q0 + self.q_coeffs).expand(*c.shape[:-2], self.poly_degree + 1)
+        return NeuralFSAIOut(c_vals=c_out, q_coeffs=q)
 
 
 def params_from_jax(params: dict) -> dict[str, torch.Tensor]:

@@ -18,17 +18,17 @@ Device half, two paths that share the local solves (kernel B1 through
 - the range-blocked path of banded orderings: slab gather, strips,
   slab-wise Gram assembly and the Gram-form polynomial wrap;
 - the generic ``FSAIPlan`` path for any pattern (a case whose pattern
-  does not fit a range plan): the dense scaled matrix from the tril value
-  vector, the local blocks gathered from it (``fsai_values``) or looked up
-  in the value vector (``fsai_values_lookup``), a dense factor C and
-  M = C C^T, or the polynomial wrap on C.
+  does not fit a range plan): the local blocks looked up in the tril value
+  vector (``fsai_values_lookup``, one case or a group), a dense factor C
+  and M = C C^T, or the polynomial wrap on C with the dense scaled matrix
+  (``fsai_dense_from_l0``).
 Gathers are plain indexing here; the reference's one-hot matmuls were a
 TPU stand-in for them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import Tuple
 
 import numpy as np
@@ -127,7 +127,12 @@ class RangeFSAIPlan:
         pos: (n_pad,) int64 slot of j inside S_j.
         diag_pad: (n_pad, w) float32, 1 on dead slots.
         out_rows: (n_pad, w) int64, S_j; sentinel n_pad.
+        lo_static: the window starts min(JB b, n_pad - H) as a tuple when
+            the plan was built with ``static_lo`` (the same for every case
+            of a dataset), else None.
     Arrays are numpy from ``build_range_fsai_plan``; ``to`` moves them.
+    A group of plans (``stack_plans``) has a leading case axis on every
+    array.
     """
 
     lo: object
@@ -136,18 +141,19 @@ class RangeFSAIPlan:
     diag_pad: object
     out_rows: object
     h: int
+    lo_static: tuple | None = None
 
     @property
     def n_pad(self) -> int:
-        return self.local.shape[0]
+        return self.local.shape[-2]
 
     @property
     def width(self) -> int:
-        return self.local.shape[1]
+        return self.local.shape[-1]
 
     @property
     def block_cols(self) -> int:
-        return self.n_pad // self.lo.shape[0]
+        return self.n_pad // self.lo.shape[-1]
 
     def to(self, device) -> "RangeFSAIPlan":
         """The plan as tensors on ``device`` (integers int64)."""
@@ -158,6 +164,7 @@ class RangeFSAIPlan:
             lo=t(self.lo).long(), local=t(self.local).long(),
             pos=t(self.pos).long(), diag_pad=t(self.diag_pad),
             out_rows=t(self.out_rows).long(), h=self.h,
+            lo_static=self.lo_static,
         )
 
 
@@ -167,9 +174,14 @@ def build_range_fsai_plan(
     n_pad: int,
     width: int,
     range_h: int,
+    static_lo: bool = False,
 ) -> RangeFSAIPlan:
     """Host build of the range-blocked plan (numpy arrays), with blocks of
     ``BLOCK_COLS`` columns and windows of height min(range_h, n_pad).
+
+    ``static_lo`` pins the window starts to lo_b = min(JB b, n_pad - H),
+    which depend on n_pad, H and JB only (the batched setups stack such
+    plans); it needs H >= the block's rows from JB b on.
 
     Raises ValueError if a column is wider than ``width`` or the pattern's
     block row spread exceeds ``range_h`` (a non-banded ordering).
@@ -214,6 +226,14 @@ def build_range_fsai_plan(
     if spread > range_h:
         raise ValueError(f"block row spread {spread} exceeds range_h {range_h}")
     h = min(range_h, n_pad)
+    lo_tuple = None
+    if static_lo:
+        lo_b = np.minimum(jb * np.arange(n_pad // jb), n_pad - h)
+        need = int((hi_b - lo_b + 1).max(initial=1))
+        if need > h:
+            raise ValueError(f"static block row spread {need} exceeds "
+                             f"range_h {h}")
+        lo_tuple = tuple(int(x) for x in lo_b)
     lo_b = np.minimum(lo_b, n_pad - h).astype(np.int32)
 
     local = (s_mat - lo_b[blk][:, None]).astype(np.int32)
@@ -226,6 +246,7 @@ def build_range_fsai_plan(
         diag_pad=diag_pad,
         out_rows=s_mat.astype(np.int32),
         h=h,
+        lo_static=lo_tuple,
     )
 
 
@@ -242,7 +263,9 @@ class FSAIPlan:
         diag_pad: (n_pad, w) float32, 1 on dead slots.
         l0_rows, l0_cols: (sentinel,) int64 scatter coordinates of the
             value vector; its padded tail lands in row n_pad.
-    Arrays are numpy from ``build_fsai_plan``; ``to`` moves them.
+    Arrays are numpy from ``build_fsai_plan``; ``to`` moves them.  A
+    group of plans (``stack_plans``) has a leading case axis on every
+    array.
     """
 
     sub_idx: object
@@ -254,11 +277,11 @@ class FSAIPlan:
 
     @property
     def n_pad(self) -> int:
-        return self.sub_idx.shape[0]
+        return self.sub_idx.shape[-3]
 
     @property
     def width(self) -> int:
-        return self.sub_idx.shape[1]
+        return self.sub_idx.shape[-2]
 
     def to(self, device) -> "FSAIPlan":
         """The plan as tensors on ``device`` (integers int64)."""
@@ -341,36 +364,77 @@ def build_fsai_plan(
     )
 
 
+# -- groups of plans ----------------------------------------------------------
+
+
+def stack_plans(plans):
+    """Stack per-case plans of one class and shape into a group plan: every
+    array gains a leading case axis (numpy; ``to`` moves the group).  Range
+    plans must share H and their static window starts."""
+    first = plans[0]
+    arrays = {f.name: np.stack([np.asarray(getattr(p, f.name)) for p in plans])
+              for f in fields(first) if f.name not in ("h", "lo_static")}
+    if isinstance(first, RangeFSAIPlan):
+        if any(p.h != first.h or p.lo_static != first.lo_static
+               for p in plans) or first.lo_static is None:
+            raise ValueError("a range group needs one H and static starts")
+        return RangeFSAIPlan(h=first.h, lo_static=first.lo_static, **arrays)
+    return FSAIPlan(**arrays)
+
+
+def take_cases(plan, sel):
+    """The cases ``sel`` (a slice or an index tensor) of a group plan."""
+    return replace(plan, **{f.name: getattr(plan, f.name)[sel]
+                            for f in fields(plan)
+                            if f.name not in ("h", "lo_static")})
+
+
+def _per_case(n0, ndim: int):
+    """``n0`` (a number, or one per case of a group) shaped to broadcast
+    against a per-case array of ``ndim`` trailing dims."""
+    if torch.is_tensor(n0) and n0.dim() == 1:
+        return n0.reshape(n0.shape[0], *([1] * ndim))
+    return n0
+
+
+def _live(n_pad: int, n0, device) -> torch.Tensor:
+    """(..., n_pad) bool: index < n0, per case for a group."""
+    return torch.arange(n_pad, device=device) < _per_case(n0, 1)
+
+
 # -- device: local solves (both paths) ---------------------------------------
 
 
 def local_systems(plan, sub: torch.Tensor):
-    """The local systems B1 solves: the (n_pad, w, w) blocks A~[S_j, S_j]
-    made identity on dead slots, and e, the one-hot of each column's
-    diagonal slot."""
-    n_pad, w = plan.n_pad, plan.width
+    """The local systems B1 solves: the (..., n_pad, w, w) blocks
+    A~[S_j, S_j] made identity on dead slots, and e, the one-hot of each
+    column's diagonal slot."""
+    w = plan.width
     pad = plan.diag_pad.to(sub.dtype)
     live = 1.0 - pad
-    sub = sub * live[:, :, None] * live[:, None, :]
-    sub = sub + torch.eye(w, dtype=sub.dtype, device=sub.device) * pad[:, :, None]
-    e = torch.zeros((n_pad, w), dtype=sub.dtype, device=sub.device)
-    e.scatter_(1, plan.pos[:, None], 1.0)
+    sub = sub * live[..., :, None] * live[..., None, :]
+    sub = sub + torch.eye(w, dtype=sub.dtype, device=sub.device) * pad[..., :, None]
+    e = torch.zeros_like(pad)
+    e.scatter_(-1, plan.pos[..., None], 1.0)
     return sub.contiguous(), e
 
 
 def _fsai_solve_columns(plan, sub: torch.Tensor, with_aux: bool = False):
     """Shared tail of the FSAI setups: ``local_systems``, kernel B1 for
-    the local solves, the Kaporin normalization.  ``with_aux`` also
-    returns a_col[j, k] = A~[S_j[k], j]."""
+    the local solves (one launch for every column of every case of a
+    group), the Kaporin normalization.  ``with_aux`` also returns
+    a_col[..., j, k] = A~[S_j[k], j]."""
     n_pad, w = plan.n_pad, plan.width
     sub, e = local_systems(plan, sub)
-    y = masked_gauss_jordan(sub, e)
-    y_pos = y.gather(1, plan.pos[:, None])[:, 0]
-    c = y / torch.sqrt(torch.clamp(y_pos, min=1e-30))[:, None]
+    y = masked_gauss_jordan(sub.reshape(-1, w, w), e.reshape(-1, w))
+    y = y.reshape(e.shape)
+    y_pos = y.gather(-1, plan.pos[..., None])[..., 0]
+    c = y / torch.sqrt(torch.clamp(y_pos, min=1e-30))[..., None]
     c = torch.where(plan.out_rows < n_pad, c, 0.0)
     if with_aux:
-        a_col = sub.gather(2, plan.pos[:, None, None].expand(n_pad, w, 1))
-        return c, a_col[:, :, 0] * (1.0 - plan.diag_pad.to(sub.dtype))
+        a_col = sub.gather(-1, plan.pos[..., None, None].expand(
+            *sub.shape[:-1], 1))[..., 0]
+        return c, a_col * (1.0 - plan.diag_pad.to(sub.dtype))
     return c
 
 
@@ -387,43 +451,37 @@ def fsai_dense_from_l0(plan: FSAIPlan, l0_vals: torch.Tensor) -> torch.Tensor:
     return a + torch.tril(a, -1).T
 
 
-def fsai_values(plan: FSAIPlan, l0_vals: torch.Tensor,
-                with_aux: bool = False):
-    """Column values of C (n_pad, w) on the generic plan: entry [j, k] is
-    C[S_j[k], j], 0 on dead slots.  The local blocks A~[S_j, S_j] are
-    gathered from the dense scaled matrix."""
-    a_dense = fsai_dense_from_l0(plan, l0_vals)
-    s_safe = plan.out_rows.clamp(max=plan.n_pad - 1)
-    sub = a_dense[s_safe[:, :, None], s_safe[:, None, :]]
-    return _fsai_solve_columns(plan, sub, with_aux)
-
-
 def fsai_values_lookup(plan: FSAIPlan, l0_vals: torch.Tensor,
                        with_aux: bool = False):
-    """``fsai_values`` through the plan's ``sub_idx`` lookup in the value
-    vector: O(n_pad w^2) memory, no dense matrix; the same output."""
-    vals_ext = torch.cat([l0_vals, l0_vals.new_zeros(1)])
-    idx = plan.sub_idx.clamp(max=vals_ext.shape[0] - 1)
-    return _fsai_solve_columns(plan, vals_ext[idx], with_aux)
+    """Column values of C (..., n_pad, w) on the generic plan: entry
+    [j, k] is C[S_j[k], j], 0 on dead slots.  The local blocks
+    A~[S_j, S_j] are looked up in the value vector through the plan's
+    ``sub_idx`` (O(n_pad w^2) memory, no dense matrix).  Takes a group
+    plan with one value vector per case."""
+    vals_ext = torch.cat([l0_vals, l0_vals.new_zeros(*l0_vals.shape[:-1], 1)],
+                         dim=-1)
+    idx = plan.sub_idx.clamp(max=vals_ext.shape[-1] - 1)
+    sub = vals_ext.gather(-1, idx.flatten(-3)).reshape(idx.shape)
+    return _fsai_solve_columns(plan, sub, with_aux)
 
 
 def fsai_dense_factor(plan: FSAIPlan, c_vals: torch.Tensor,
                       d_isqrt: torch.Tensor | None = None,
-                      n0: int | None = None) -> torch.Tensor:
+                      n0=None) -> torch.Tensor:
     """Dense lower-triangular C from the column values; optionally folds
     the Jacobi scaling (C_raw = D^-1/2 C) and masks rows and columns
-    >= n0."""
+    >= n0 (per case for a group)."""
     n_pad = plan.n_pad
-    j_idx = torch.arange(n_pad, device=c_vals.device)[:, None].expand(
-        plan.out_rows.shape)
-    c = c_vals.new_zeros((n_pad + 1, n_pad))
-    c.index_put_((plan.out_rows, j_idx), c_vals, accumulate=True)
-    c = c[:n_pad]
+    j_idx = torch.arange(n_pad, device=c_vals.device)[:, None]
+    flat = (plan.out_rows * n_pad + j_idx).flatten(-2)  # row n_pad: dropped
+    c = c_vals.new_zeros(*c_vals.shape[:-2], (n_pad + 1) * n_pad)
+    c.scatter_add_(-1, flat, c_vals.flatten(-2))
+    c = c[..., :n_pad * n_pad].reshape(*c_vals.shape[:-2], n_pad, n_pad)
     if d_isqrt is not None:
-        c = d_isqrt[:, None] * c
+        c = d_isqrt[..., :, None] * c
     if n0 is not None:
-        mask = torch.arange(n_pad, device=c.device) < n0
-        c = torch.where(mask[:, None] & mask[None, :], c, 0.0)
+        mask = _live(n_pad, n0, c.device)
+        c = torch.where(mask[..., :, None] & mask[..., None, :], c, 0.0)
     return c
 
 
@@ -431,17 +489,18 @@ def fsai_dense_preconditioner(
     plan: FSAIPlan,
     l0_vals: torch.Tensor,
     d_isqrt: torch.Tensor | None = None,
-    n0: int | None = None,
+    n0=None,
     dtype=torch.float32,
 ) -> torch.Tensor:
     """Generic FSAI setup: dense M = C C^T (Jacobi scaling folded, rows
     and columns >= n0 masked), computed in ``l0_vals``' dtype and cast to
-    ``dtype``, as the reference does."""
-    c = fsai_dense_factor(plan, fsai_values(plan, l0_vals), d_isqrt, n0)
-    m = c @ c.T
+    ``dtype``, as the reference does; one case or a group."""
+    c = fsai_dense_factor(plan, fsai_values_lookup(plan, l0_vals), d_isqrt,
+                          n0)
+    m = c @ c.transpose(-1, -2)
     if n0 is not None:
-        mask = torch.arange(plan.n_pad, device=m.device) < n0
-        m = torch.where(mask[:, None] & mask[None, :], m, 0.0)
+        mask = _live(plan.n_pad, n0, m.device)
+        m = torch.where(mask[..., :, None] & mask[..., None, :], m, 0.0)
     return m.to(dtype)
 
 
@@ -449,64 +508,75 @@ def fsai_dense_preconditioner(
 
 
 def _windows(plan: RangeFSAIPlan) -> torch.Tensor:
-    """(B, H) row ids of every block's window: lo_b + [0, H)."""
-    return plan.lo[:, None] + torch.arange(plan.h,
-                                           device=plan.lo.device)
+    """(..., B, H) row ids of every block's window: lo_b + [0, H)."""
+    return plan.lo[..., :, None] + torch.arange(plan.h,
+                                                device=plan.lo.device)
 
 
 def range_local_blocks(plan: RangeFSAIPlan,
                        a_dense: torch.Tensor) -> torch.Tensor:
-    """The (n_pad, w, w) local blocks A~[S_j, S_j] of the range path: one
-    advanced-indexing gather of the (B, H, H) slabs of the dense scaled
-    matrix, then each column's block from its slab (dead slots read a
-    slab entry that ``local_systems`` masks)."""
-    n_pad, h, jb = plan.n_pad, plan.h, plan.block_cols
-    win = _windows(plan)
-    slabs = a_dense[win[:, :, None], win[:, None, :]]  # (B, H, H)
+    """The (..., n_pad, w, w) local blocks A~[S_j, S_j] of the range path:
+    each column's rows lo_b + local (dead slots clamped into the window,
+    read and then masked by ``local_systems``), gathered from the dense
+    scaled matrix in one ``gather``; a group takes (cases, n_pad, n_pad)."""
+    n_pad, h, jb, w = plan.n_pad, plan.h, plan.block_cols, plan.width
     blk = torch.arange(n_pad, device=a_dense.device) // jb
-    loc = plan.local.clamp(max=h - 1)
-    return slabs[blk[:, None, None], loc[:, :, None], loc[:, None, :]]
+    rows = plan.lo[..., blk][..., None] + plan.local.clamp(max=h - 1)
+    idx = rows[..., :, None] * n_pad + rows[..., None, :]
+    return a_dense.flatten(-2).gather(-1, idx.flatten(-3)).reshape(
+        *rows.shape[:-1], w, w)
 
 
 def range_fsai_columns(plan: RangeFSAIPlan, a_dense: torch.Tensor,
                        with_aux: bool = False):
-    """FSAI column values (n_pad, w) via the range-blocked path:
-    ``range_local_blocks``, then ``_fsai_solve_columns``.  ``with_aux``
-    also returns a_col[j, k] = A~[S_j[k], j]."""
+    """FSAI column values (..., n_pad, w) via the range-blocked path:
+    ``range_local_blocks``, then ``_fsai_solve_columns``.  On a group plan
+    with (cases, n_pad, n_pad) operands it is the group form: one B1
+    launch for all cases' columns, bit-equal on the CPU to the per-case
+    calls.  ``with_aux`` also returns a_col[..., j, k] = A~[S_j[k], j]."""
     return _fsai_solve_columns(plan, range_local_blocks(plan, a_dense),
                                with_aux)
 
 
 def range_strips(plan: RangeFSAIPlan, c_vals: torch.Tensor) -> torch.Tensor:
-    """Column values (n_pad, w) -> block-local strips (B, JB, H):
+    """Column values (..., n_pad, w) -> block-local strips (..., B, JB, H):
     strip[b, jj, h] = C[lo_b + h, b*JB + jj]."""
     n_pad, h, jb = plan.n_pad, plan.h, plan.block_cols
-    strips = c_vals.new_zeros((n_pad, h + 1))  # column H takes the sentinels
-    strips.scatter_add_(1, plan.local, c_vals)
-    return strips[:, :h].reshape(n_pad // jb, jb, h)
+    lead = c_vals.shape[:-2]
+    strips = c_vals.new_zeros(*lead, n_pad, h + 1)  # column H: sentinels
+    strips.scatter_add_(-1, plan.local, c_vals)
+    return strips[..., :h].reshape(*lead, n_pad // jb, jb, h)
 
 
 def range_m_from_strips(
     plan: RangeFSAIPlan,
     strips: torch.Tensor,
     d_isqrt: torch.Tensor,
-    n0: int,
+    n0,
 ) -> torch.Tensor:
     """Dense M = C_eff C_eff^T from block-local strips, where
     C_eff = D^-1/2 C (``d_isqrt`` folds the Jacobi scaling into the rows)
     with rows and columns >= n0 masked: per block the (H, H) Gram slab
     G_b = c_b^T c_b, accumulated at (lo_b, lo_b).  Windows overlap, so the
-    slabs are added with ``index_put_(accumulate=True)``."""
+    slabs are added: by ``index_put_(accumulate=True)``, or on a plan with
+    static window starts (every group) by one slab add per block."""
     n_pad, h, jb = plan.n_pad, plan.h, plan.block_cols
     b = n_pad // jb
-    win = _windows(plan)  # (B, H)
-    c_local = strips * d_isqrt.to(strips.dtype)[win][:, None, :]
+    win = _windows(plan)  # (..., B, H)
+    d_win = d_isqrt.to(strips.dtype).gather(-1, win.flatten(-2)).reshape(
+        win.shape)
+    c_local = strips * d_win[..., :, None, :]
     col_ids = torch.arange(n_pad, device=strips.device).reshape(b, jb)
-    c_local = torch.where((col_ids < n0)[:, :, None], c_local, 0.0)
-    c_local = torch.where((win < n0)[:, None, :], c_local, 0.0)
+    n0 = _per_case(n0, 2)
+    c_local = torch.where((col_ids < n0)[..., None], c_local, 0.0)
+    c_local = torch.where((win < n0)[..., :, None, :], c_local, 0.0)
 
-    g = torch.bmm(c_local.transpose(1, 2), c_local)  # (B, H, H)
-    m = strips.new_zeros((n_pad, n_pad))
+    g = torch.matmul(c_local.transpose(-1, -2), c_local)  # (..., B, H, H)
+    m = strips.new_zeros(*strips.shape[:-3], n_pad, n_pad)
+    if plan.lo_static is not None:
+        for i, lo in enumerate(plan.lo_static):
+            m[..., lo:lo + h, lo:lo + h] += g[..., i, :, :]
+        return m
     m.index_put_(
         (win[:, :, None].expand(b, h, h), win[:, None, :].expand(b, h, h)),
         g, accumulate=True,
@@ -518,15 +588,59 @@ def fsai_dense_preconditioner_range(
     plan: RangeFSAIPlan,
     a_dense: torch.Tensor,
     d_isqrt: torch.Tensor,
-    n0: int,
+    n0,
     dtype=torch.float32,
 ) -> torch.Tensor:
     """Range-blocked FSAI setup: dense M = C C^T on the raw system
-    (Jacobi scaling folded, rows and columns >= n0 masked)."""
+    (Jacobi scaling folded, rows and columns >= n0 masked); a group plan
+    takes stacked operands, scalings and n0."""
     a_dense = a_dense.to(dtype)
     c_vals = range_fsai_columns(plan, a_dense)
     strips = range_strips(plan, c_vals)
     return range_m_from_strips(plan, strips, d_isqrt, n0)
+
+
+# -- device: strips and bands of static-start plans ---------------------------
+
+
+def range_strips_uniform(plan: RangeFSAIPlan,
+                         c_vals: torch.Tensor) -> torch.Tensor:
+    """Strips (..., B, JB, H) re-based to the uniform window start JB b:
+    the tail blocks, whose start the plan clamped to n_pad - H, shift
+    left by their clamp (rows >= cols >= JB b, so nothing falls off the
+    front).  Needs a static-start plan."""
+    if plan.lo_static is None:
+        raise ValueError("uniform strips need a static_lo plan")
+    h, jb = plan.h, plan.block_cols
+    strips = range_strips(plan, c_vals)
+    out = strips.clone()
+    for b, lo in enumerate(plan.lo_static):
+        shift = b * jb - lo
+        if shift:
+            out[..., b, :, :h - shift] = strips[..., b, :, shift:]
+            out[..., b, :, h - shift:] = 0.0
+    return out
+
+
+def window_vector(v: torch.Tensor, jb: int, h: int) -> torch.Tensor:
+    """(..., n_pad) -> (..., B, H): w[..., b, h'] = v[..., jb b + h'] (0
+    past the end): overlapping stride-JB windows, one strided view."""
+    n_pad = v.shape[-1]
+    vp = torch.nn.functional.pad(v, (0, h))
+    return vp.unfold(-1, h, jb)[..., :n_pad // jb, :]
+
+
+def strips_to_bands(strips_u: torch.Tensor, jb: int,
+                    d_max: int) -> torch.Tensor:
+    """Uniform strips (..., B, JB, H) -> diagonal-major bands
+    (..., d_max, n_pad): bands[d, jb b + jj] = strips_u[b, jj, jj + d]."""
+    *lead, b, jb_, _ = strips_u.shape
+    if jb_ != jb:
+        raise ValueError(f"strips of {jb_} columns per block, not {jb}")
+    sp_ = torch.nn.functional.pad(strips_u, (0, d_max))
+    x = torch.stack([sp_[..., jj, jj:jj + d_max] for jj in range(jb)],
+                    dim=-2)  # (..., B, JB, D)
+    return x.movedim(-1, -3).reshape(*lead, d_max, b * jb)
 
 
 def poly_preconditioner_dense(

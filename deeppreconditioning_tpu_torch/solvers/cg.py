@@ -14,6 +14,13 @@ on the host once per chunk.  Iteration counts are exact per iteration,
 not rounded to chunks.  ``pcg_fixed_trips`` runs the same masked
 iteration a fixed number of times with no host read at all, so its
 counts equal the chunked solver's whenever ``trips`` covers the solve.
+
+``batched_preconditioned_conjugate_gradient`` and
+``batched_pcg_fixed_trips`` solve B independent systems at once, x and b
+(B, n), with the same masked semantics per case: every scalar is a
+per-case dot, a case freezes once it converges (or at ``max_iter``), and
+the chunked form reads on the host, once per chunk, whether any case is
+still running.  The matvec and the preconditioner take (B, n).
 """
 
 from __future__ import annotations
@@ -120,3 +127,79 @@ def pcg_fixed_trips(
         s = _masked_iteration(matvec, a_data, apply_m, m_data, s, bb, rtol,
                               max_iter)
     return CGResult(x=s.x, iterations=s.k, residual=torch.dot(s.r, s.r) / bb)
+
+
+def _dots(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (u * v).sum(dim=-1)
+
+
+def _batched_start(matvec, a_data, b, apply_m, m_data, rtol):
+    x = torch.zeros_like(b)
+    r = b - matvec(a_data, x)
+    z = apply_m(m_data, r)
+    bb = _dots(b, b)
+    bb = torch.where(bb == 0, torch.ones_like(bb), bb)
+    k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    return _PCGState(x, r, z, z, k, _dots(r, r) / bb < rtol), bb
+
+
+def _batched_iteration(matvec, a_data, apply_m, m_data, s: _PCGState, bb,
+                       rtol, max_iter) -> _PCGState:
+    """One PCG iteration of every case; a case that is done (or at
+    ``max_iter``) stays frozen."""
+    frozen = s.done | (s.k >= max_iter)  # (B,)
+    fz = frozen[:, None]
+    zero = torch.zeros((), dtype=s.r.dtype, device=s.r.device)
+    ap = matvec(a_data, s.p)
+    rz = _dots(s.r, s.z)
+    denom = _dots(ap, s.p)
+    alpha = torch.where(frozen, zero, rz / denom)
+    x = s.x + alpha[:, None] * s.p
+    r_new = torch.where(fz, s.r, s.r - alpha[:, None] * ap)
+    z_new = torch.where(fz, s.z, apply_m(m_data, r_new))
+    beta = torch.where(frozen, zero, _dots(r_new, z_new) / rz)
+    p = torch.where(fz, s.p, z_new + beta[:, None] * s.p)
+    k = torch.where(frozen, s.k, s.k + 1)
+    done = s.done | (_dots(r_new, r_new) / bb < rtol)
+    return _PCGState(x, r_new, z_new, p, k, done)
+
+
+def batched_preconditioned_conjugate_gradient(
+    matvec: Callable[[Any, torch.Tensor], torch.Tensor],
+    a_data: Any,
+    b: torch.Tensor,
+    apply_m: Callable[[Any, torch.Tensor], torch.Tensor] = identity_apply,
+    m_data: Any = None,
+    rtol: float = 1e-8,
+    max_iter: int = 1024,
+    check_every: int = 8,
+) -> CGResult:
+    """Solve B systems A_i x_i = b_i (b: (B, n)) until every case is done;
+    x (B, n), iterations (B,) int32, residual (B,)."""
+    s, bb = _batched_start(matvec, a_data, b, apply_m, m_data, rtol)
+    while bool((~s.done & (s.k < max_iter)).any()):
+        for _ in range(check_every):
+            s = _batched_iteration(matvec, a_data, apply_m, m_data, s, bb,
+                                   rtol, max_iter)
+    return CGResult(x=s.x, iterations=s.k, residual=_dots(s.r, s.r) / bb)
+
+
+def batched_pcg_fixed_trips(
+    matvec: Callable[[Any, torch.Tensor], torch.Tensor],
+    a_data: Any,
+    b: torch.Tensor,
+    apply_m: Callable[[Any, torch.Tensor], torch.Tensor] = identity_apply,
+    m_data: Any = None,
+    rtol: float = 1e-8,
+    max_iter: int = 1024,
+    trips: int = 8,
+) -> CGResult:
+    """The batched solve for exactly ``trips`` masked iterations, with no
+    host read: the chunked solver's counts and x whenever ``trips`` covers
+    the slowest case (a case it does not cover reports ``trips``
+    iterations and a residual >= rtol)."""
+    s, bb = _batched_start(matvec, a_data, b, apply_m, m_data, rtol)
+    for _ in range(trips):
+        s = _batched_iteration(matvec, a_data, apply_m, m_data, s, bb, rtol,
+                               max_iter)
+    return CGResult(x=s.x, iterations=s.k, residual=_dots(s.r, s.r) / bb)

@@ -13,14 +13,15 @@ import scipy.sparse as sp
 import torch
 
 
-def csr_to_ell_arrays(csr, n_pad: int):
+def csr_to_ell_arrays(csr, n_pad: int, sentinel: int | None = None):
     """Vectorized CSR -> padded ELL (cols, vals) host arrays with the
-    slot count of the longest row; empty slots get column n_pad and
-    value 0."""
+    slot count of the longest row; empty slots get column ``sentinel``
+    (default n_pad) and value 0."""
     n = csr.shape[0]
     counts = np.diff(csr.indptr)
     k = max(int(counts.max()) if n and csr.nnz else 0, 1)
-    cols = np.full((n_pad, k), n_pad, np.int32)
+    cols = np.full((n_pad, k), n_pad if sentinel is None else sentinel,
+                   np.int32)
     vals = np.zeros((n_pad, k), np.float64)
     if csr.nnz:
         row_of = np.repeat(np.arange(n), counts)

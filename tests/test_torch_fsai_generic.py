@@ -57,11 +57,13 @@ def test_build_fsai_plan_matches_jax(pad):
 
 @pytest.mark.parametrize("lookup", [False, True])
 def test_fsai_values_match_jax(lookup):
+    """The port's one generic form (the value-vector lookup) against both
+    of the reference's: the dense-matrix gather and the lookup."""
     vals, _, _, plan, ref = _case(sentinel=None)
     plan = plan.to("cpu")
-    ours = fsai.fsai_values_lookup if lookup else fsai.fsai_values
     theirs = jax_fsai.fsai_values_lookup if lookup else jax_fsai.fsai_values
-    c, a_col = ours(plan, torch.tensor(vals), with_aux=True)
+    c, a_col = fsai.fsai_values_lookup(plan, torch.tensor(vals),
+                                       with_aux=True)
     c_ref, a_col_ref = theirs(ref, jnp.asarray(vals), with_aux=True)
     _close(c, c_ref)
     _close(a_col, a_col_ref)

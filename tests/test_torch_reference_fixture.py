@@ -19,7 +19,10 @@ from deeppreconditioning_tpu_torch.bench.frames import (
     SEED,
     frames_suite,
 )
-from deeppreconditioning_tpu_torch.bench.suite import BenchmarkSuite
+from deeppreconditioning_tpu_torch.bench.suite import (
+    BANDED_SPREAD_CAP,
+    BenchmarkSuite,
+)
 from deeppreconditioning_tpu_torch.data.datasets import SludgePatternDataSet
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -113,3 +116,67 @@ def test_port_frames_cases_match_the_fixture(frames, index):
     for name in ("fsai", "learned"):
         generic = index in fixture["generic_cases"][name]
         assert (index in suite.generic_cases[name]) == generic, name
+
+
+BATCHED_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+                   / "batched_iterations.json")
+# BENCH_r05 (bench.py's driver record): hardware-independent mean counts
+BENCH_R05_BATCHED = {"jacobi": 99.19, "fsai": 23.15, "learned": 7.58}
+BENCH_R05_IRREGULAR = {"jacobi": 52.2, "learned": 13.85}
+
+
+@pytest.fixture(scope="module")
+def batched_fixture():
+    return json.loads(BATCHED_FIXTURE.read_text())
+
+
+def test_batched_fixture_describes_the_port_split(batched_fixture):
+    from deeppreconditioning_tpu_torch.bench import irregular
+
+    fx = batched_fixture
+    assert (fx["seed"], fx["samples"], fx["mesh_cells"]) == (69420, 500, 2)
+    assert (fx["cases"], fx["n_pad"]) == (100, 1024)
+    suite = BenchmarkSuite(None, techniques=("fsai",), device="cpu")
+    assert (fx["check_every"], fx["ic_neumann_sweeps"], fx["rtol"],
+            fx["max_iter"]) == (suite.check_every, suite.ic_neumann_sweeps,
+                                suite.rtol, suite.max_iter)
+    per = fx["percase"]
+    for name in ("incomplete_cholesky", "incomplete_cholesky_neumann",
+                 "algebraic_multigrid"):
+        assert len(per["iterations"][name]) == 100
+        assert all(per["success"][name])
+    bat = fx["batched"]
+    assert bat["techniques"] == list(BenchmarkSuite._BATCHED_CHECK_EVERY)
+    assert bat["check_every"] == BenchmarkSuite._BATCHED_CHECK_EVERY
+    assert bat["learned_apply"] == "banded"
+    assert bat["learned_d_max"] <= BANDED_SPREAD_CAP
+    for name in bat["techniques"]:
+        iters = bat["iterations"][name]
+        assert len(iters) == 100 and bat["success"][name] == 100.0
+        assert bat["trips"][name] == max(iters) + 2
+        assert bat["m_dtype"][name] in ("bfloat16", "float32")
+    irr = fx["irregular"]
+    assert (irr["seed"], irr["samples"], irr["cases"]) == (
+        irregular.SEED, irregular.SAMPLES, 20)
+    assert irr["fsai_power"] == irr["learned_power"] == irregular.POWER
+    for name in irregular.TECHNIQUES:
+        assert len(irr["iterations"][name]) == 20
+        assert len(irr["iterations_f64"][name]) == 20
+        assert all(irr["success"][name])
+    # the permuted (odd) cases leave the range plan
+    for name in ("fsai", "learned"):
+        assert set(range(1, 20, 2)) <= set(irr["generic_cases"][name])
+
+
+@pytest.mark.parametrize("part,name", [
+    ("batched", "jacobi"), ("batched", "fsai"), ("batched", "learned"),
+    ("irregular", "jacobi"), ("irregular", "learned")])
+def test_batched_fixture_against_bench_r05(batched_fixture, part, name):
+    """The JAX CPU float32 means against bench.py's driver record
+    (BENCH_r05, a TPU v5e): within 1%, except the batched learned mean,
+    7.71 against 7.58 (1.7%), a gap ROADMAP C records."""
+    record = (BENCH_R05_BATCHED if part == "batched"
+              else BENCH_R05_IRREGULAR)[name]
+    mean = batched_fixture[part]["mean_iterations"][name]
+    limit = 0.02 if (part, name) == ("batched", "learned") else 0.01
+    assert abs(mean - record) <= limit * record, (mean, record)
