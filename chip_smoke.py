@@ -54,6 +54,23 @@ Phases (each raises on failure):
      ``tests/fixtures/torch_port/batched_iterations.json``; the first
      case's fsai and learned M on the card agree with the port's CPU
      float64 path to 1e-4 (relative to max |M|);
+  4f. training, after the per-case path and on its generated cases,
+     through the train entry point (``python -m
+     deeppreconditioning_tpu_torch.train``'s ``run``): one flagship epoch
+     (the 400-case train split shuffled with seed 69, batches of 4: 95
+     Adam steps of ``pcg_loss`` over 16 PCG steps at lr 1e-4, width 24,
+     hidden 64, degree 2, power 4, range plans at H 256) from the JAX init
+     parameters (``tests/fixtures/torch_port/train_init.msgpack``), the 5
+     held-out batches validated before and after.  Held against the JAX
+     CPU float32 run (``train_epoch.json``): step 0's loss within
+     TRAIN_STEP0_RTOL, every step within TRAIN_STEP_RTOL, the epoch mean
+     equal to the ``train/loss/inverse`` record of ``metrics.jsonl``; per
+     case validation iterations within 1, their mean within 1%, the
+     validation loss within TRAIN_VAL_RTOL; B1 launched once per step and
+     per validation batch, no plain version on the card; ``best.msgpack``
+     read back equal to the model.  Then B1 against its plain version on
+     one training batch's local systems (w 24, N 4 x 1024), timed as in
+     phase 3;
   4d. the batched protocol on the same split through the entry point's
      ``run_batched`` (vanilla, jacobi, incomplete_cholesky_neumann,
      algebraic_multigrid, fsai, learned; bf16 first): per-case iterations
@@ -125,6 +142,7 @@ from deeppreconditioning_tpu_torch.bench.__main__ import (  # noqa: E402
     SETUP_REPS,
     SOLVE_REPS,
     batched_ratios,
+    flagship_cases,
     run as run_main_path,
     run_batched,
 )
@@ -169,6 +187,15 @@ from deeppreconditioning_tpu_torch.ops.structured_fsai import (  # noqa: E402
     structured_setup,
 )
 from deeppreconditioning_tpu_torch.sparse.dia import pad_rows  # noqa: E402
+from deeppreconditioning_tpu_torch.metrics import (  # noqa: E402
+    symmetrize_tril,
+)
+from deeppreconditioning_tpu_torch.models.neural_fsai import (  # noqa: E402
+    params_to_jax,
+)
+from deeppreconditioning_tpu_torch.train import (  # noqa: E402
+    __main__ as train_entry,
+)
 from deeppreconditioning_tpu_torch.train.checkpoint import (  # noqa: E402
     load_checkpoint,
 )
@@ -232,6 +259,16 @@ TPU_SCALING_RECORD = {
     128: {"vanilla": 651, "jacobi": 248, "fsai": 97, "learned": 43,
           "gmg_jacobi": 18, "gmg_learned": 17},
 }
+
+
+TRAIN_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+                 / "train_epoch.json")
+TRAIN_INIT = REPO / "tests" / "fixtures" / "torch_port" / "train_init.msgpack"
+# Training against the JAX CPU float32 epoch: step 0 sees the same params
+# (float32 rounding of the forward only); later steps also carry the
+# rounding of earlier updates.
+TRAIN_STEP0_RTOL, TRAIN_STEP_RTOL, TRAIN_VAL_RTOL = 1e-5, 1e-3, 1e-3
+TRAIN_ITERS_CASE, TRAIN_ITERS_MEAN = 1, 0.01
 
 
 def card_line() -> str:
@@ -722,6 +759,134 @@ def hold_counts(label, iters, ref, success, ref_success, case_tol,
     return mean, ref_mean, int(delta.max())
 
 
+def check_training_path(cases, card):
+    """Phase 4f: one flagship training epoch through the train entry
+    point against the JAX CPU float32 epoch; returns the launches and the
+    run."""
+    fixture = json.loads(TRAIN_FIXTURE.read_text())
+    out = RESULTS / "train"
+    args = train_entry.parse_args([
+        "--init-from", str(TRAIN_INIT), "--checkpoint-dir", str(out),
+        "--metrics-dir", str(out / "metrics"), "--validate-init"])
+    cfg = fixture["config"]
+    params = args.params
+    if ((fixture["seed"], fixture["cases"], fixture["mesh_cells"]) != (
+            SEED, params.number_samples, params.mesh_cells)
+            or cfg != {"batch_size": params.batch_size, "width": args.width,
+                       "hidden": args.hidden, "poly_degree": args.poly_degree,
+                       "power": args.power, "range_h": 256, "loss": args.loss,
+                       "pcg_steps": args.pcg_steps, "learning_rate": args.lr,
+                       "select_by": args.select_by, "seed": params.seed}):
+        raise AssertionError("the training fixture describes another run")
+    (out / "metrics" / "metrics.jsonl").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    _backend.reset_launch_counts()
+    run = train_entry.run(args, cases=cases)
+    launches = _backend.launch_counts()
+    plain = _backend.plain_cuda_counts()
+    wall_s = time.perf_counter() - t0
+    data_set, state = run.data_set, run.state
+    if (fixture["n_pad"], fixture["nnz0_pad"], fixture["split_cases"]) != (
+            data_set.dof_pad, data_set.nnz0_pad,
+            len(data_set) * data_set.batch_size):
+        raise AssertionError("the training fixture describes another split")
+    init, epoch = state.epochs
+    losses = np.asarray(epoch["step_losses"])
+    ref = np.asarray(fixture["step_losses"])
+    failures = []
+    if losses.shape != ref.shape:
+        raise AssertionError(f"{losses.shape[0]} steps, reference "
+                             f"{ref.shape[0]}")
+    rel = np.abs(losses - ref) / np.abs(ref)
+    expected = fixture["train_batches"] + 2 * fixture["val_batches"]
+    step_ms = np.median(epoch["step_seconds"]) * 1e3
+    print(f"training path: {len(data_set)} batches of "
+          f"{data_set.batch_size}, n_pad {data_set.dof_pad}, plan kind "
+          f"{run.plan_provider.kind}; {wall_s:.1f} s wall (split, plans, "
+          f"init validation, epoch, checkpoints); epoch {epoch['seconds']:.2f}"
+          f" s; train step median {step_ms:.3f} ms (min "
+          f"{min(epoch['step_seconds']) * 1e3:.3f}, max "
+          f"{max(epoch['step_seconds']) * 1e3:.3f}) [{card}]")
+    print(f"  step losses against the JAX CPU f32 epoch: step 0 "
+          f"{losses[0]:.7f} vs {ref[0]:.7f} (rel {rel[0]:.2e}, limit "
+          f"{TRAIN_STEP0_RTOL}); worst rel {rel.max():.2e} at step "
+          f"{int(rel.argmax())} (limit {TRAIN_STEP_RTOL}); epoch mean "
+          f"{epoch['train_loss']:.7f} vs {fixture['train_loss']:.7f}")
+    if not rel[0] <= TRAIN_STEP0_RTOL:
+        failures.append(f"step 0 loss {losses[0]} vs {ref[0]}")
+    if not (rel <= TRAIN_STEP_RTOL).all():
+        failures.append(f"step {int(rel.argmax())} loss off by {rel.max()}")
+    logged = [json.loads(line) for line in
+              (out / "metrics" / "metrics.jsonl").read_text().splitlines()]
+    logged = [r["value"] for r in logged if r["name"] == "train/loss/inverse"]
+    if logged != [epoch["train_loss"]]:
+        failures.append(f"metrics.jsonl train loss {logged}")
+    for name, got in (("init", init), ("epoch", epoch)):
+        want = fixture[name]
+        iters, ref_iters = (np.asarray(got["val_iterations"]),
+                            np.asarray(want["iterations"]))
+        vrel = abs(got["val_loss"] - want["val_loss"]) / abs(want["val_loss"])
+        print(f"  validation at {name}: iterations {iters.mean():.3f} (JAX "
+              f"CPU f32 {ref_iters.mean():.3f}, max |delta| per case "
+              f"{int(np.abs(iters - ref_iters).max())}), loss "
+              f"{got['val_loss']:.6f} vs {want['val_loss']:.6f} (rel "
+              f"{vrel:.2e}); B1 launches {got['b1_launches']}")
+        if (np.abs(iters - ref_iters) > TRAIN_ITERS_CASE).any():
+            failures.append(f"{name} validation: a case is off")
+        if abs(iters.mean() - ref_iters.mean()) > (TRAIN_ITERS_MEAN
+                                                   * ref_iters.mean()):
+            failures.append(f"{name} validation mean {iters.mean()}")
+        if not vrel <= TRAIN_VAL_RTOL:
+            failures.append(f"{name} validation loss off by {vrel}")
+    print(f"  B1 launches {launches['gauss_jordan']} (steps + validation "
+          f"batches at init and after the epoch: {expected}); plain "
+          f"versions on the card: {plain}")
+    if launches["gauss_jordan"] != expected or epoch["b1_launches"] != (
+            fixture["train_batches"] + fixture["val_batches"]):
+        failures.append("B1 not launched once per step and validation batch")
+    if any(plain.values()):
+        failures.append(f"a plain version ran on the card: {plain}")
+    payload = load_checkpoint(out / "best.msgpack")
+    if not same_tree(payload["params"],
+                     params_to_jax(state.model.state_dict())) or (
+                         payload["step"] != state.step):
+        failures.append("best.msgpack does not hold the trained model")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, run
+
+
+def same_tree(a, b) -> bool:
+    """Two trees of maps with numpy leaves: same keys, equal arrays."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(same_tree(a[k], b[k]) for k in a))
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def check_gauss_jordan_training(run, card):
+    """B1 against its plain version on the local systems of the first
+    training batch (every case's columns in one launch)."""
+    batch = run.data_set[0]
+    plans = run.plan_provider(0, batch)
+    with torch.no_grad():
+        a_full = symmetrize_tril(batch.systems.to_dense())
+        sub, e = local_systems(plans, range_local_blocks(plans, a_full))
+        w = sub.shape[-1]
+        sub, e = sub.reshape(-1, w, w), e.reshape(-1, w)
+        n = sub.shape[0]
+        err = check_gauss_jordan_on(sub, e, f"a training batch (N {n})")
+        rec = measure(
+            f"B1 on a training batch's local systems "
+            f"({batch.features.shape[0]} cases, N {n}, w {w}; max abs err "
+            f"{err:.3e}, rtol {GJ_RTOL}, atol {GJ_ATOL})",
+            lambda: masked_gauss_jordan(sub, e),
+            lambda: masked_gauss_jordan_torch(sub, e),
+            lambda: torch.linalg.solve_ex(sub, e[..., None]),
+            gauss_jordan_work(n, w), sub.device, card)
+    return err, rec
+
+
 def check_batched_path(suite, fixture, card):
     """Phase 4d: the batched protocol on the main path's split through
     the entry point's ``run_batched``, against the JAX reference's
@@ -911,8 +1076,12 @@ def main() -> None:
     # 4. the per-case main path
     fixture = json.loads(FIXTURE.read_text())
     t0 = time.perf_counter()
+    cases = flagship_cases()
+    print(f"generated {len(cases)} sludge cases in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     _backend.reset_launch_counts()
-    suite = run_main_path(dev, results_directory=RESULTS)
+    suite = run_main_path(dev, results_directory=RESULTS, cases=cases)
     launches = _backend.launch_counts()["gauss_jordan"]
     plain = _backend.plain_cuda_counts()
     wall_s = time.perf_counter() - t0
@@ -925,7 +1094,7 @@ def main() -> None:
         raise AssertionError(f"table schema changed: {header}")
     n_cases = len(suite.data_set)
     print(f"main path: {n_cases} cases, n_pad {suite.data_set.dof_pad}, "
-          f"{wall_s:.1f} s wall (generation, plans, timing reps)")
+          f"{wall_s:.1f} s wall (split, plans, timing reps)")
     expected = suite.setup_calls["fsai"] + suite.setup_calls["learned"]
     print(f"B1 launches on the main path: {launches} "
           f"(fsai + learned setups: {expected}); plain versions on the "
@@ -967,6 +1136,12 @@ def main() -> None:
     check_setup_against_cpu(
         suite, REPO / "assets" / "checkpoints_fsai" / "best.msgpack")
 
+    # 4f. training on the same generated cases; B1 at its shape
+    train_launches, train_run = check_training_path(cases, card)
+    gj_train_err, _ = check_gauss_jordan_training(train_run, card)
+    gj_err = max(gj_err, gj_train_err)
+    del cases, train_run
+
     # 4d. the batched protocol on the same split; B1 at its shape
     _, batched_launches = check_batched_path(suite, batched_fixture, card)
     gj_batched_err, _ = check_gauss_jordan_batched(suite, card)
@@ -991,6 +1166,7 @@ def main() -> None:
 
     # 5. records
     paths = {"per-case": {"gauss_jordan": launches},
+             "train": train_launches,
              "batched": batched_launches, "irregular": irregular_launches,
              "scaling": scaling_launches, "roofline": roofline_launches,
              "frames": frames_launches}

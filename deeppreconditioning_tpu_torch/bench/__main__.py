@@ -59,18 +59,28 @@ def generate_cases(samples: int, seed: int, mesh_cells: int):
             for _ in range(samples)]
 
 
+def flagship_cases():
+    """bench.py's sludge-pattern cases: ``number_samples`` from seed 69420
+    at ``mesh_cells`` (``params.yaml``)."""
+    params = params_show(REPO / "params.yaml")
+    return generate_cases(params.number_samples, SEED, params.mesh_cells)
+
+
 def flagship_suite(
     device: torch.device,
     results_directory: Path = RESULTS_DIRECTORY,
     techniques: tuple = TECHNIQUES,
+    cases=None,
 ) -> BenchmarkSuite:
     """The suite over the sludge test split with the flagship checkpoint,
-    as bench.py builds it, not yet run."""
+    as bench.py builds it, not yet run; ``cases``: the generated cases,
+    if the caller has them (``flagship_cases``)."""
     params = params_show(REPO / "params.yaml")
     if params.model != "NeuralFSAI":
         raise NotImplementedError(
             f"model {params.model}: only NeuralFSAI is ported")
-    cases = generate_cases(params.number_samples, SEED, params.mesh_cells)
+    if cases is None:
+        cases = flagship_cases()
     data_set = SludgePatternDataSet(stage="test", cases=cases)
     payload = load_checkpoint(REPO / params.checkpoint_dir / "best.msgpack")
     return BenchmarkSuite(
@@ -88,10 +98,11 @@ def run(
     device: torch.device,
     results_directory: Path = RESULTS_DIRECTORY,
     techniques: tuple = TECHNIQUES,
+    cases=None,
 ) -> BenchmarkSuite:
     """Build the test split and the learned model, run the per-case
     suite, return it."""
-    suite = flagship_suite(device, results_directory, techniques)
+    suite = flagship_suite(device, results_directory, techniques, cases)
     suite.run()
     return suite
 

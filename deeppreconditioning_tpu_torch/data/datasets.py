@@ -7,6 +7,14 @@ A~ = D^-1/2 A D^-1/2, identity padding to ``dof_pad``, (row, col) sort),
 ``dof_max`` / ``dof_pad`` (read from every case, not only the split's).
 No conv plans: those belong to the conv model families.
 
+Two views of a split: ``SludgePatternDataSet``, the benchmark's (host
+samples in case order, batch size 1), and ``PlannedDataSet``, the
+trainer's (shuffled once, ``DeviceBatch``es of ``batch_size`` cases on
+the dataset's device).  A training batch carries, in place of the
+reference's conv plans, only what the FSAI plan provider reads of them:
+the level-0 tril sites in feature order (``sites``, the rows, cols and
+valid of the reference's ``batch.plans[0]``).
+
 Cases come from disk (``<family>/case_*/matrix.npz`` etc., the layout
 ``data/fvm.save_case`` writes; the family is ``sludge_patterns``,
 ``sludge_patterns_3d`` or ``frame_structures``) or from memory (a list of ``FVMCase``); both give
@@ -15,10 +23,14 @@ the same host samples.
 
 from __future__ import annotations
 
+import random
 from pathlib import Path
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from deeppreconditioning_tpu_torch.sparse.coo import BatchedCOO
 
 ROOT: Path = Path("./assets/data/raw/")
 FAMILIES = ("sludge_patterns", "sludge_patterns_3d", "frame_structures")
@@ -102,6 +114,37 @@ def _read_case(folder: Path) -> tuple:
     return rows, cols, vals, sol, rhs
 
 
+def _split_items(stage: str, root: Path, cases: Sequence | None,
+                 family: str) -> Tuple[list, int]:
+    """The split's items (``FVMCase``s or case folders, in case order) and
+    ``dof_max`` over every case of the family."""
+    if family not in FAMILIES:
+        raise ValueError(f"family {family!r} not in {FAMILIES}")
+    if cases is not None:
+        all_items = list(cases)
+        dof_max = max(c.matrix.shape[0] for c in all_items)
+    else:
+        all_items = sorted((Path(root) / family).glob("case_*"))
+        if not all_items:
+            raise FileNotFoundError(f"no cases under {root}/{family}")
+        dof_max = 0
+        for folder in all_items:
+            with np.load(folder / "matrix.npz") as z:
+                dof_max = max(dof_max, int(z["shape"].max()))
+    if dof_max <= 0:
+        raise ValueError("Maximum degrees of freedom is zero")
+    return _split_folders(all_items, stage), dof_max
+
+
+def _host_sample(item, dof_pad: int) -> _HostSample:
+    if isinstance(item, Path):
+        raw = _read_case(item)
+    else:
+        m = item.matrix
+        raw = (m.row, m.col, m.data, item.solution, item.rhs)
+    return _prepare_sample(*raw, dof_pad)
+
+
 class SludgePatternDataSet:
     """Host samples of a split in case order (batch size 1, not shuffled:
     the benchmark's view of the split).
@@ -119,36 +162,125 @@ class SludgePatternDataSet:
         cases: Sequence | None = None,
         family: str = "sludge_patterns",
     ) -> None:
-        if family not in FAMILIES:
-            raise ValueError(f"family {family!r} not in {FAMILIES}")
-        if cases is not None:
-            all_items = list(cases)
-            dof_max = max(c.matrix.shape[0] for c in all_items)
-        else:
-            all_items = sorted((Path(root) / family).glob("case_*"))
-            if not all_items:
-                raise FileNotFoundError(f"no cases under {root}/{family}")
-            dof_max = 0
-            for folder in all_items:
-                with np.load(folder / "matrix.npz") as z:
-                    dof_max = max(dof_max, int(z["shape"].max()))
-        if dof_max <= 0:
-            raise ValueError("Maximum degrees of freedom is zero")
-        items = _split_folders(all_items, stage)
-        self.dof_max = dof_max
-        self.dof_pad = round_up(dof_max, 128)
-
-        self._host = []
-        for item in items:
-            if cases is not None:
-                m = item.matrix
-                raw = (m.row, m.col, m.data, item.solution, item.rhs)
-            else:
-                raw = _read_case(item)
-            self._host.append(_prepare_sample(*raw, self.dof_pad))
+        items, self.dof_max = _split_items(stage, root, cases, family)
+        self.dof_pad = round_up(self.dof_max, 128)
+        self._host = [_host_sample(item, self.dof_pad) for item in items]
 
     def __len__(self) -> int:
         return len(self._host)
 
     def host_sample(self, index: int) -> _HostSample:
         return self._host[index]
+
+
+class Sites(NamedTuple):
+    """Level-0 tril sites of a batch in feature order, (B, nnz0_pad) each:
+    the rows, cols and valid of the reference's ``batch.plans[0]``."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    valid: torch.Tensor
+
+
+class DeviceBatch(NamedTuple):
+    """One training or validation batch on the dataset's device (apart
+    from ``original_sizes``)."""
+
+    features: torch.Tensor  # (B, nnz0_pad, 1) scaled tril values
+    sites: Sites  # their (row, col) sites and valid mask
+    systems: BatchedCOO  # scaled tril(A~), same site order as features
+    solutions: torch.Tensor  # (B, dof_pad) solutions of the scaled systems
+    right_hand_sides: torch.Tensor  # (B, dof_pad), scaled to match A~
+    scales: torch.Tensor  # (B, dof_pad) diagonals D: A = D^1/2 A~ D^1/2
+    original_sizes: Tuple[int, ...]  # true dofs
+    index: int  # the batch's index in its data set
+
+
+class PlannedDataSet:
+    """The trainer's view of a split: host samples, shuffled once with
+    ``random.Random(seed)`` (the reference's folder shuffle), served as
+    ``DeviceBatch``es of ``batch_size`` consecutive samples (a trailing
+    partial batch is dropped).
+
+    ``nnz0_pad`` is ``round_up(max nnz, 256)`` over the split's samples, so
+    every batch has one shape.  Each batch is built on first use and kept
+    for the data set's life, so it keeps its identity across epochs.
+    """
+
+    def __init__(
+        self,
+        stage: str,
+        batch_size: int,
+        root: Path = ROOT,
+        cases: Sequence | None = None,
+        family: str = "sludge_patterns",
+        shuffle: bool = True,
+        seed: int = 69,
+        device="cpu",
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        items, self.dof_max = _split_items(stage, root, cases, family)
+        if shuffle:
+            random.Random(seed).shuffle(items)
+        self.items = items
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.dof_pad = round_up(self.dof_max, 128)
+        self._host = [_host_sample(item, self.dof_pad) for item in items]
+        self.nnz0_pad = round_up(max(h.rows.shape[0] for h in self._host),
+                                 256)
+        self._batches: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._host) // self.batch_size
+
+    def host_sample(self, index: int) -> _HostSample:
+        """The host sample of batch ``index``'s first member."""
+        return self._host[index * self.batch_size]
+
+    def __getitem__(self, index: int) -> DeviceBatch:
+        if index < 0 or index >= len(self):
+            raise IndexError(index)
+        if index not in self._batches:
+            self._batches[index] = self._build_batch(index)
+        return self._batches[index]
+
+    def _build_batch(self, index: int) -> DeviceBatch:
+        members = self._host[index * self.batch_size:
+                             (index + 1) * self.batch_size]
+        b, nnz0 = len(members), self.nnz0_pad
+        feats = np.zeros((b, nnz0), np.float64)
+        rows = np.zeros((b, nnz0), np.int64)
+        cols = np.zeros((b, nnz0), np.int64)
+        valid = np.zeros((b, nnz0), bool)
+        idx_list = []
+        for bi, h in enumerate(members):
+            nnz = h.rows.shape[0]
+            feats[bi, :nnz] = h.vals
+            rows[bi, :nnz] = h.rows
+            cols[bi, :nnz] = h.cols
+            valid[bi, :nnz] = True
+            idx_list.append(np.column_stack(
+                (np.full(nnz, bi, np.int64), h.rows, h.cols)))
+        systems = BatchedCOO.from_numpy(
+            np.vstack(idx_list), np.concatenate([h.vals for h in members]),
+            b, (self.dof_pad, self.dof_pad), bucket=nnz0, dtype=self.dtype,
+            device=self.device,
+        )
+
+        def dev(x, dtype=None):
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+        return DeviceBatch(
+            features=dev(feats[..., None], self.dtype),
+            sites=Sites(dev(rows), dev(cols), dev(valid)),
+            systems=systems,
+            solutions=dev(np.stack([h.solution for h in members]),
+                          self.dtype),
+            right_hand_sides=dev(np.stack([h.rhs for h in members]),
+                                 self.dtype),
+            scales=dev(np.stack([h.scale for h in members]), self.dtype),
+            original_sizes=tuple(h.original_size for h in members),
+            index=index,
+        )

@@ -16,17 +16,27 @@ parts:
 
 Flax's ``nn.gelu`` is the tanh approximation, hence
 ``nn.GELU(approximate="tanh")``.  ``params_from_jax`` maps a Flax
-parameter tree onto this module's ``state_dict``.  The forward also takes
-a group of plans (``ops/fsai.stack_plans``) with one operand per case,
-the reference's vmapped ``model.apply`` of the batched protocol: one B1
-launch for the whole group.  A generic plan's local blocks are always
-looked up in the value vector, the reference's ``gather="lookup"`` form
-(its default gather from the dense matrix gives the same values).
+parameter tree onto this module's ``state_dict`` and ``params_to_jax``
+back; ``init_params`` is Flax's fresh initialization.  The forward also
+takes a group of plans (``ops/fsai.stack_plans``) with one operand per
+case, the reference's vmapped ``model.apply`` (the batched protocol and
+the training batches): one B1 launch for the whole group.  So the
+reference's ``batched_apply_fsai(model, params, plans, operands)`` is
+``model(plans, operands)`` here, and its ``stack_fsai_plans`` is
+``ops/fsai.stack_plans``.  A generic plan's local blocks are always looked up in
+the value vector, the reference's ``gather="lookup"`` form (its default
+gather from the dense matrix gives the same values).
+
+The parameters enter after the local solves, so the solves carry no
+gradient to the parameters, in the reference as here: when the operand
+needs no gradient they run under ``torch.no_grad()``.  (B1's CUDA wrapper
+refuses an operand that needs one: it would drop the gradient.)
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -34,15 +44,24 @@ from torch import nn
 
 from deeppreconditioning_tpu_torch.ops.fsai import (
     FSAIPlan,
+    RangeFSAIPlan,
+    build_fsai_plan,
+    build_range_fsai_plan,
     fsai_dense_factor,
     fsai_dense_from_l0,
     fsai_values_lookup,
+    pattern_col_width,
     poly_preconditioner_dense,
     poly_preconditioner_from_gram,
+    range_dense_factor_slabs,
     range_fsai_columns,
     range_m_from_strips,
     range_strips,
+    stack_plans,
+    tril_power_pattern,
 )
+
+LAYERS = ("alpha", "beta", "dense0", "dense1")  # Flax's (sorted) names
 
 
 class NeuralFSAIOut(NamedTuple):
@@ -85,7 +104,9 @@ class NeuralFSAI(nn.Module):
             raise ValueError(f"plan width {plan.width} != model width {w}")
         columns = (fsai_values_lookup if isinstance(plan, FSAIPlan)
                    else range_fsai_columns)
-        c, a_col = columns(plan, operand, with_aux=True)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and operand.requires_grad):
+            c, a_col = columns(plan, operand, with_aux=True)
 
         pad = plan.diag_pad.to(c.dtype)
         pos1h = torch.zeros_like(c).scatter_(-1, plan.pos[..., None], 1.0)
@@ -112,17 +133,66 @@ def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """Flax NeuralFSAI variables (``{"params": {...}}``, as a checkpoint
     stores them) -> ``NeuralFSAI.state_dict()``.  Flax ``Dense`` kernels
     are (in, out); ``nn.Linear`` weights are (out, in), so they are
-    transposed.  ``q_coeffs`` is the stored delta over e0.
+    transposed.  ``q_coeffs`` is the stored delta over e0.  Also maps an
+    optimizer moment tree of the same layout.
     """
     tree = params["params"]
     state = {}
-    for name in ("dense0", "dense1", "alpha", "beta"):
+    for name in LAYERS:
         state[f"{name}.weight"] = torch.from_numpy(
             np.array(tree[name]["kernel"]).T.copy()
         )
         state[f"{name}.bias"] = torch.from_numpy(np.array(tree[name]["bias"]))
     state["q_coeffs"] = torch.from_numpy(np.array(tree["q_coeffs"]))
     return state
+
+
+def params_to_jax(state: dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``params_from_jax``: a ``state_dict`` (or any map
+    with its keys, such as an optimizer moment per parameter) -> Flax's
+    variables ``{"params": {...}}`` with numpy leaves, keys in Flax's
+    sorted order."""
+    def host(t):
+        return np.ascontiguousarray(t.detach().cpu().numpy())
+
+    tree = {name: {"bias": host(state[f"{name}.bias"]),
+                   "kernel": host(state[f"{name}.weight"].T)}
+            for name in LAYERS}
+    tree["q_coeffs"] = host(state["q_coeffs"])
+    return {"params": tree}
+
+
+_TRUNC_STD = 0.87962566103423978  # std of a standard normal cut to [-2, 2]
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal draws cut to [-2, 2] (inverse-CDF sampling, float64
+    on the CPU)."""
+    lo, hi = (0.5 * (1.0 + math.erf(x / math.sqrt(2.0))) for x in (-2, 2))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    u = lo + (hi - lo) * u
+    x = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+    return x.clamp(-2.0, 2.0)
+
+
+def init_params(model: NeuralFSAI, generator: torch.Generator) -> None:
+    """Flax's fresh initialization of ``model``, in place, drawn from
+    ``generator``: ``dense0`` and ``dense1`` kernels ``lecun_normal`` (a
+    normal cut to +-2 standard deviations and rescaled to variance
+    1 / fan_in), every bias zero, the ``alpha`` and ``beta`` heads and
+    ``q_coeffs`` zero.  This matches Flax's distribution, not its bits:
+    the draws come from torch's generator, not from a JAX key."""
+    with torch.no_grad():
+        for layer in (model.dense0, model.dense1):
+            fan_in = layer.weight.shape[1]
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            w = _truncated_normal(layer.weight.shape, generator) * std
+            layer.weight.copy_(w)
+            nn.init.zeros_(layer.bias)
+        for head in (model.alpha, model.beta):
+            nn.init.zeros_(head.weight)
+            nn.init.zeros_(head.bias)
+        nn.init.zeros_(model.q_coeffs)
 
 
 def neural_fsai_from_checkpoint(payload: dict) -> NeuralFSAI:
@@ -162,3 +232,93 @@ def neural_fsai_dense_preconditioner(
     d_sqrt = torch.sqrt(scales.to(dtype))
     a_raw = d_sqrt[:, None] * operand * d_sqrt[None, :]
     return poly_preconditioner_from_gram(s_eff, a_raw, out.q_coeffs)
+
+
+# -- batches of plans (the training path) -------------------------------------
+
+
+def batched_dense_factor(plans, c_vals: torch.Tensor) -> torch.Tensor:
+    """Dense C of every case of a group -> (B, n_pad, n_pad), by plan
+    kind, in scaled space."""
+    if isinstance(plans, RangeFSAIPlan):
+        return range_dense_factor_slabs(plans, c_vals)
+    return fsai_dense_factor(plans, c_vals)
+
+
+def batched_dense_m(plans, out: NeuralFSAIOut,
+                    a_full: torch.Tensor) -> torch.Tensor:
+    """Batched dense preconditioner M~ = C q(B) q(B)^T C^T in scaled space
+    (no scaling fold, no n0 mask: the scaled systems are what training
+    solves)."""
+    c_dense = batched_dense_factor(plans, out.c_vals)
+    return poly_preconditioner_dense(c_dense, a_full, out.q_coeffs)
+
+
+class FSAIPlanProvider:
+    """Builds and caches the group FSAI plan of each training batch.
+
+    Per sample it derives the pattern tril(|A|^power) from the batch's
+    level-0 sites and builds a range plan at window height
+    ``min(range_h, n_pad)`` without static starts, or a generic plan; the
+    group goes to the dataset's device.  ``kind`` "auto" settles on
+    "range" at the first sample whose range plan builds, else on
+    "generic", for good.  Plans are cached per batch index in the
+    dataset (``batch.index``), so each is built once and reused every
+    epoch.
+    """
+
+    def __init__(self, dataset, power: int = 3, width: int = 16,
+                 range_h: int = 256, kind: str = "auto") -> None:
+        self.dataset = dataset
+        self.power = power
+        self.width = width
+        self.range_h = range_h
+        self.kind = kind  # "auto" | "range" | "generic"
+        self._cache: dict = {}
+
+    def _sample_plan(self, rows, cols, valid, n_pad, sentinel):
+        nnz = int(valid.sum())
+        r0 = rows[:nnz].astype(np.int32)
+        c0 = cols[:nnz].astype(np.int32)
+        pr, pc = tril_power_pattern(r0, c0, n_pad, power=self.power)
+        need = pattern_col_width(pr, pc)
+        if need > self.width:
+            raise ValueError(
+                f"fsai pattern width {need} exceeds configured width "
+                f"{self.width}; raise params fsai_width"
+            )
+        if self.kind == "auto":
+            try:
+                plan = build_range_fsai_plan(
+                    pr, pc, n_pad, width=self.width,
+                    range_h=min(self.range_h, n_pad),
+                )
+                self.kind = "range"
+                return plan
+            except ValueError:
+                self.kind = "generic"
+        if self.kind == "range":
+            return build_range_fsai_plan(
+                pr, pc, n_pad, width=self.width,
+                range_h=min(self.range_h, n_pad),
+            )
+        return build_fsai_plan(
+            r0, c0, pr, pc, n_pad, width=self.width, sentinel=sentinel
+        )
+
+    def __call__(self, index: int, batch):
+        # keyed on the batch's index in the dataset, not ``index``: split
+        # views renumber their batches from 0
+        del index
+        if batch.index in self._cache:
+            return self._cache[batch.index]
+        sites = [np.asarray(x.cpu()) for x in batch.sites]
+        n_pad = batch.solutions.shape[1]
+        sentinel = batch.features.shape[1]
+        plans: List = [
+            self._sample_plan(rows, cols, valid, n_pad, sentinel)
+            for rows, cols, valid in zip(*sites)
+        ]
+        plan = stack_plans(plans).to(self.dataset.device)
+        self._cache[batch.index] = plan
+        return plan

@@ -370,14 +370,17 @@ def build_fsai_plan(
 def stack_plans(plans):
     """Stack per-case plans of one class and shape into a group plan: every
     array gains a leading case axis (numpy; ``to`` moves the group).  Range
-    plans must share H and their static window starts."""
+    plans must share H, and either the same static window starts or none
+    (then each case keeps its own ``lo``, as the training batches' plans
+    do)."""
     first = plans[0]
     arrays = {f.name: np.stack([np.asarray(getattr(p, f.name)) for p in plans])
               for f in fields(first) if f.name not in ("h", "lo_static")}
     if isinstance(first, RangeFSAIPlan):
         if any(p.h != first.h or p.lo_static != first.lo_static
-               for p in plans) or first.lo_static is None:
-            raise ValueError("a range group needs one H and static starts")
+               for p in plans):
+            raise ValueError("a range group needs one H and one kind of "
+                             "window starts")
         return RangeFSAIPlan(h=first.h, lo_static=first.lo_static, **arrays)
     return FSAIPlan(**arrays)
 
@@ -577,11 +580,31 @@ def range_m_from_strips(
         for i, lo in enumerate(plan.lo_static):
             m[..., lo:lo + h, lo:lo + h] += g[..., i, :, :]
         return m
+    if win.dim() != 2:
+        raise ValueError("a group of plans without static starts has no "
+                         "Gram assembly")
     m.index_put_(
         (win[:, :, None].expand(b, h, h), win[:, None, :].expand(b, h, h)),
         g, accumulate=True,
     )
     return m
+
+
+def range_dense_factor_slabs(plan: RangeFSAIPlan,
+                             c_vals: torch.Tensor) -> torch.Tensor:
+    """Dense lower-triangular C (scaled space) from range-blocked column
+    values: block b's (H, JB) strip slab lands at rows lo_b.., columns
+    b JB..; column ranges are disjoint, so the slabs never collide.  One
+    scatter, for static and per-case window starts alike; one case or a
+    group (``c_vals`` (..., n_pad, w))."""
+    n_pad, h, jb = plan.n_pad, plan.h, plan.block_cols
+    strips = range_strips(plan, c_vals)  # (..., B, JB, H)
+    rows = _windows(plan)[..., :, None, :]  # (..., B, 1, H)
+    cols = torch.arange(n_pad, device=c_vals.device).reshape(-1, jb, 1)
+    idx = (rows * n_pad + cols).expand(strips.shape)
+    c = c_vals.new_zeros(*c_vals.shape[:-2], n_pad * n_pad)
+    c = c.scatter(-1, idx.flatten(-3), strips.flatten(-3))
+    return c.reshape(*c_vals.shape[:-2], n_pad, n_pad)
 
 
 def fsai_dense_preconditioner_range(
@@ -644,11 +667,11 @@ def strips_to_bands(strips_u: torch.Tensor, jb: int,
 
 
 def poly_preconditioner_dense(
-    c_dense: torch.Tensor,  # (n, n) scaled-space factor C~
-    a_dense: torch.Tensor,  # (n, n) scaled symmetric A~
-    q_coeffs: torch.Tensor,  # (d+1,) coefficients of q
+    c_dense: torch.Tensor,  # (..., n, n) scaled-space factor C~
+    a_dense: torch.Tensor,  # (..., n, n) scaled symmetric A~
+    q_coeffs: torch.Tensor,  # (..., d+1) coefficients of q
     d_isqrt: torch.Tensor | None = None,
-    n0: int | None = None,
+    n0=None,
 ) -> torch.Tensor:
     """Polynomial-wrapped FSAI, materialized dense:
 
@@ -656,23 +679,24 @@ def poly_preconditioner_dense(
 
     (SPD for any q; q = I gives C C^T), q evaluated by Horner, then the
     Jacobi scaling folded (D^-1/2 M~ D^-1/2) and rows and columns >= n0
-    masked.  Full float32 products on the card (TF32 off)."""
+    masked.  One case or a batch (leading axes on every operand, ``n0``
+    one per case).  Full float32 products on the card (TF32 off)."""
     dtype = c_dense.dtype
-    n = c_dense.shape[0]
-    q_coeffs = q_coeffs.to(dtype)
-    bmat = c_dense.T @ (a_dense.to(dtype) @ c_dense)
+    n = c_dense.shape[-1]
+    q_coeffs = q_coeffs.to(dtype)[..., None, None]
+    bmat = c_dense.mT @ (a_dense.to(dtype) @ c_dense)
     eye = torch.eye(n, dtype=dtype, device=c_dense.device)
-    q = eye * q_coeffs[-1]
-    for i in range(q_coeffs.shape[0] - 2, -1, -1):
-        q = q @ bmat + q_coeffs[i] * eye
+    q = eye * q_coeffs[..., -1, :, :]
+    for i in range(q_coeffs.shape[-3] - 2, -1, -1):
+        q = q @ bmat + q_coeffs[..., i, :, :] * eye
     cq = c_dense @ q
-    m = cq @ cq.T
+    m = cq @ cq.mT
     if d_isqrt is not None:
         d = d_isqrt.to(dtype)
-        m = d[:, None] * m * d[None, :]
+        m = d[..., :, None] * m * d[..., None, :]
     if n0 is not None:
-        mask = torch.arange(n, device=m.device) < n0
-        m = torch.where(mask[:, None] & mask[None, :], m, 0.0)
+        mask = _live(n, n0, m.device)
+        m = torch.where(mask[..., :, None] & mask[..., None, :], m, 0.0)
     return m
 
 

@@ -78,8 +78,13 @@ def check_gauss_jordan_args(sub: torch.Tensor, e: torch.Tensor) -> None:
 
 def gauss_jordan_cuda(sub: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """Launch kernel B1 on the current stream; raises on anything it does
-    not take (``check_gauss_jordan_args``) and on a refused launch."""
+    not take (``check_gauss_jordan_args``), on a refused launch, and on
+    operands that need a gradient: the kernel has no backward, and its
+    result would silently carry none where the plain version's does."""
     lib = _backend.kernel_library()
+    if torch.is_grad_enabled() and (sub.requires_grad or e.requires_grad):
+        raise ValueError("gauss_jordan_cuda has no backward: its operands "
+                         "must not require a gradient")
     check_gauss_jordan_args(sub, e)
     n, w = sub.shape[0], sub.shape[1]
     y = torch.empty((n, w), dtype=sub.dtype, device=sub.device)

@@ -160,9 +160,15 @@ def test_group_lookup_equals_the_per_case_calls():
 
 
 def test_stack_plans_refuses_mixed_windows():
+    """Static-start plans and plans with their own window starts do not
+    mix; plans without static starts stack into a group that keeps each
+    case's starts (the training batches' plans)."""
     plans = _plans()
-    with pytest.raises(ValueError):
-        fsai.stack_plans(_plans(static_lo=False))
+    free_plans = _plans(static_lo=False)
+    group = fsai.stack_plans(free_plans)
+    assert group.lo_static is None
+    np.testing.assert_array_equal(group.lo,
+                                  np.stack([p.lo for p in free_plans]))
     free = fsai.build_range_fsai_plan(CASES[0][2], CASES[0][3], N_PAD,
                                       width=WIDTH, range_h=H)
     with pytest.raises(ValueError):

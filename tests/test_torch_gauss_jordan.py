@@ -3,8 +3,9 @@ reference: the plain version against ``_masked_gauss_jordan_xla`` (f64)
 and against the Pallas ``_gj_kernel`` in interpret mode (f32), the
 kernel's width instances and the exactness of its identity padding, the
 CUDA kernel against the plain version on a card, the kernel's argument
-checks, the widths of the committed checkpoints, and the no-fallback
-rule.
+checks, the widths of the committed checkpoints, the no-fallback
+rule, and gradients: the plain version carries one, the kernel refuses
+operands that need one.
 
 JAX is imported inside the tests that use it, so the CUDA test also runs
 on a machine without JAX:
@@ -147,6 +148,39 @@ def test_cuda_kernel_matches_plain(w, cuda_device):
     assert _backend.launch_counts()["gauss_jordan"] == before + 1
     ref = masked_gauss_jordan_torch(sub, rhs)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+
+
+def test_plain_version_carries_a_gradient():
+    """On the CPU the plain version is differentiable: its gradient with
+    respect to the local blocks equals that of a dense solve."""
+    a, e = _systems(24, 16, seed=5)
+    sub = torch.tensor(a, requires_grad=True)
+    ref_sub = torch.tensor(a, requires_grad=True)
+    weights = torch.tensor(np.random.default_rng(6).standard_normal((16, 24)))
+    y = masked_gauss_jordan(sub, torch.tensor(e))
+    assert y.grad_fn is not None
+    (y * weights).sum().backward()
+    ref = torch.linalg.solve(ref_sub, torch.tensor(e)[..., None])[..., 0]
+    (ref * weights).sum().backward()
+    torch.testing.assert_close(y, ref, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(sub.grad, ref_sub.grad, rtol=1e-10,
+                               atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_operands_that_need_a_gradient(cuda_device):
+    """The kernel has no backward, so an operand that needs a gradient is
+    refused instead of silently dropping it; without autograd it runs."""
+    a, e = _systems(24, 64, seed=7)
+    sub = torch.tensor(a, dtype=torch.float32, device=cuda_device,
+                       requires_grad=True)
+    rhs = torch.tensor(e, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="no backward"):
+        masked_gauss_jordan(sub, rhs)
+    with torch.no_grad():
+        got = masked_gauss_jordan(sub, rhs)
+    torch.testing.assert_close(got, masked_gauss_jordan_torch(
+        sub.detach(), rhs), rtol=1e-4, atol=1e-6)
 
 
 def test_committed_checkpoint_widths_fit_the_kernel():

@@ -1,4 +1,4 @@
-"""The PyTorch port imports no JAX, Flax or YAML: every module of the
+"""The PyTorch port imports no JAX, Flax, msgpack or YAML: every module of the
 package (and ``chip_smoke.py``) imports in a subprocess where those
 modules cannot be imported."""
 
@@ -22,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 for name in ("ops.ic0", "ops.trisolve", "ops.amg", "ops.banded_factor",
-             "bench.irregular"):
+             "bench.irregular", "metrics", "sparse.coo", "train.trainer",
+             "train.__main__", "utils.logging"):
     assert pkg.__name__ + "." + name in sys.modules, name
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "flax", "yaml", "deeppreconditioning_tpu")
@@ -38,4 +39,4 @@ def test_port_imports_without_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 40
+    assert int(out.stdout.strip().splitlines()[-1]) >= 45
