@@ -71,6 +71,27 @@ Phases (each raises on failure):
      read back equal to the model.  Then B1 against its plain version on
      one training batch's local systems (w 24, N 4 x 1024), timed as in
      phase 3;
+  4g. the conv path, on the per-case path's split, through the test-stage
+     entry point (``python -m deeppreconditioning_tpu_torch.test``'s
+     ``run``, technique learned, median of 3 timed runs per case): the
+     dense apply for the three conv checkpoints
+     (``assets/checkpoints/best.msgpack`` and ``checkpoints_v2``,
+     PreconditionerNet; ``checkpoints_unet``, PreconditionerSparseUNet)
+     and the factor apply for the first.  Per run: the level buckets as
+     the JAX reference's, per-case iterations within 2 of the JAX CPU
+     float32 counts (``tests/fixtures/torch_port/conv_iterations.json``),
+     the mean within 1%, success equal; no kernel launched and no plain
+     version run on the card (the path has no hand-written kernel: its
+     gather-GEMM, dense products and PCG are PyTorch's, as they are XLA's
+     in the reference); case 0's M (dense) or L values (factor) on the
+     card within M_RTOL of the port's CPU float64 setup.  Prints each
+     run's setup (forward and M), solve and total medians and the untimed
+     plan preparation.  Then, on the factor run's case 0, the two applies
+     alone: z = M r (dense) and z = L (L^T r) (factor) agree within
+     M_RTOL, and each is timed as PCG issues it (a loop of
+     CONV_APPLY_CALLS calls between two events, median of
+     CONV_APPLY_ROUNDS rounds taken in turn) and replayed from a CUDA
+     graph (device time only);
   4d. the batched protocol on the same split through the entry point's
      ``run_batched`` (vanilla, jacobi, incomplete_cholesky_neumann,
      algebraic_multigrid, fsai, learned; bf16 first): per-case iterations
@@ -150,6 +171,7 @@ from deeppreconditioning_tpu_torch.bench.suite import (  # noqa: E402
     BATCHED_KEYS,
     TABLE_PARAMETERS,
     BenchmarkSuite,
+    _learned_setup_device,
 )
 from deeppreconditioning_tpu_torch.bench import frames  # noqa: E402
 from deeppreconditioning_tpu_torch.bench import irregular  # noqa: E402
@@ -195,6 +217,10 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (  # noqa: E402
 )
 from deeppreconditioning_tpu_torch.train import (  # noqa: E402
     __main__ as train_entry,
+)
+from deeppreconditioning_tpu_torch import test as test_entry  # noqa: E402
+from deeppreconditioning_tpu_torch.models import (  # noqa: E402
+    conv_model_from_checkpoint,
 )
 from deeppreconditioning_tpu_torch.train.checkpoint import (  # noqa: E402
     load_checkpoint,
@@ -269,6 +295,10 @@ TRAIN_INIT = REPO / "tests" / "fixtures" / "torch_port" / "train_init.msgpack"
 # rounding of earlier updates.
 TRAIN_STEP0_RTOL, TRAIN_STEP_RTOL, TRAIN_VAL_RTOL = 1e-5, 1e-3, 1e-3
 TRAIN_ITERS_CASE, TRAIN_ITERS_MEAN = 1, 0.01
+CONV_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+                / "conv_iterations.json")
+CONV_TIMING_REPS = 3
+CONV_APPLY_CALLS, CONV_APPLY_ROUNDS = 100, 11  # the dense vs factor apply
 
 
 def card_line() -> str:
@@ -759,6 +789,129 @@ def hold_counts(label, iters, ref, success, ref_success, case_tol,
     return mean, ref_mean, int(delta.max())
 
 
+def check_conv_path(cases, card):
+    """Phase 4g: the conv families' learned technique through the
+    test-stage entry point, per fixture run; returns the launches."""
+    fixture = json.loads(CONV_FIXTURE.read_text())
+    failures = []
+    launches = dict.fromkeys(_backend.KERNELS, 0)
+    print(f"conv path on {card} (ms, median over cases; setup = forward "
+          f"and M or L values):")
+    for run, ref in fixture["runs"].items():
+        checkpoint = REPO / ref["checkpoint"]
+        args = test_entry.parse_args([
+            "--model", ref["model"], "--checkpoint", str(checkpoint),
+            "--techniques", "learned", "--kappa-cases", "0",
+            "--timing-reps", str(CONV_TIMING_REPS),
+            "--results-dir", str(RESULTS / "conv" / run)])
+        t0 = time.perf_counter()
+        _backend.reset_launch_counts()
+        suite = test_entry.run(args, cases=cases,
+                               learned_apply=ref["learned_apply"])
+        run_launches = _backend.launch_counts()
+        plain = _backend.plain_cuda_counts()
+        wall_s = time.perf_counter() - t0
+        data_set = suite.data_set
+        models = fixture["models"][ref["model"]]
+        if (fixture["seed"], fixture["cases"], fixture["n_pad"]) != (
+                SEED, len(data_set), data_set.dof_pad):
+            raise AssertionError("the conv fixture describes another split")
+        if data_set.level_buckets != models["level_buckets"]:
+            failures.append(f"{run}: level buckets {data_set.level_buckets}"
+                            f", reference {models['level_buckets']}")
+        if ref["learned_apply"] == "factor" and (
+                list(suite._learned_widths()) != models["final_widths"]):
+            failures.append(f"{run}: factor widths differ")
+        if any(run_launches.values()) or any(plain.values()):
+            failures.append(f"{run}: launches {run_launches}, plain "
+                            f"versions on the card {plain}")
+        for name, count in run_launches.items():
+            launches[name] += count
+        success = [s == 100.0 for s in suite.successes["learned"]]
+        mean, ref_mean, worst = hold_counts(
+            f"conv {run}", suite.iterations["learned"], ref["iterations"],
+            success, ref["success"], 2, 0.01, failures)
+        rel = check_conv_setup_against_cpu(suite, ref, checkpoint)
+        prep = {k: round(v, 3) for k, v in suite.prep_seconds.items()}
+        print(f"  {run:<20} {ref['model']} {ref['learned_apply']}: iters "
+              f"{mean:6.2f} (JAX CPU f32 {ref_mean:6.2f}, max |delta| per "
+              f"case {worst}) setup "
+              f"{np.median(suite.setups['learned']) * 1e3:.3f} solve "
+              f"{np.median(suite.durations['learned']) * 1e3:.3f} total "
+              f"{np.median(suite.totals['learned']) * 1e3:.3f} success "
+              f"{np.mean(success) * 100:.0f}%; case 0 card f32 vs CPU f64 "
+              f"{rel:.3e} (limit {M_RTOL}); plan prep (untimed, s) {prep};"
+              f" {wall_s:.1f} s wall")
+        if not rel <= M_RTOL:
+            failures.append(f"{run}: case 0's setup disagrees with the CPU")
+        if ref["learned_apply"] == "factor":
+            compare_conv_applies(suite, failures)
+    print(card_line())
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def check_conv_setup_against_cpu(suite, ref, checkpoint):
+    """Case 0's M (dense) or L values (factor): the card (float32) against
+    the port's CPU float64 setup, max |diff| / max |CPU|."""
+    cpu = BenchmarkSuite(
+        suite.data_set,
+        conv_model_from_checkpoint(ref["model"],
+                                   load_checkpoint(checkpoint)),
+        techniques=("learned",), device="cpu", dtype=torch.float64,
+        learned_apply=ref["learned_apply"],
+    )
+    with torch.no_grad():
+        got = suite.setup("learned", 0)[1]
+        want = cpu.setup("learned", 0)[1]
+    if ref["learned_apply"] == "factor":
+        got, want = got[1], want[1]
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("conv setup: non-finite values on the card")
+    return float((got.double().cpu() - want).abs().max() / want.abs().max())
+
+
+def compare_conv_applies(suite, failures):
+    """Case 0's dense apply (M r) against its factor apply (L (L^T r)) on
+    one vector: agreement, and ms per apply as PCG issues it and as a
+    CUDA graph replays it."""
+    dev = suite.device
+    a_sp, ell, _ = suite._system(0)
+    batch = suite._conv_batch(0)
+    with torch.no_grad():
+        m = _learned_setup_device(suite.model, batch.features, batch.plans,
+                                  batch.scales, a_sp.shape[0])
+        apply_f, m_data = suite.setup("learned", 0)
+    r = torch.randn(ell.n_pad, generator=torch.Generator().manual_seed(SEED),
+                    dtype=torch.float32).to(dev)
+    applies = {"dense": lambda: m @ r, "factor": lambda: apply_f(m_data, r)}
+    want, got = applies["dense"](), applies["factor"]()
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not rel <= M_RTOL:
+        failures.append(f"conv applies disagree: {rel:.3e}")
+    issued = {name: [] for name in applies}
+    for _ in range(CONV_APPLY_ROUNDS):
+        for name, fn in applies.items():
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CONV_APPLY_CALLS):
+                fn()
+            end.record()
+            end.synchronize()
+            issued[name].append(start.elapsed_time(end) / CONV_APPLY_CALLS)
+    print(f"  conv applies alone, case 0 (n_pad {ell.n_pad}, ms per apply; "
+          f"issued: median of {CONV_APPLY_ROUNDS} rounds of "
+          f"{CONV_APPLY_CALLS} calls; graph: device time): " + "; ".join(
+              f"{name} issued {np.median(issued[name]):.4f} (rounds "
+              f"{min(issued[name]):.4f}-{max(issued[name]):.4f}) graph "
+              f"{time_graph(fn, dev) * 1e3:.4f}"
+              for name, fn in applies.items())
+          + f"; factor vs dense {rel:.3e}")
+
+
 def check_training_path(cases, card):
     """Phase 4f: one flagship training epoch through the train entry
     point against the JAX CPU float32 epoch; returns the launches and the
@@ -1136,6 +1289,9 @@ def main() -> None:
     check_setup_against_cpu(
         suite, REPO / "assets" / "checkpoints_fsai" / "best.msgpack")
 
+    # 4g. the conv families on the same split
+    conv_launches = check_conv_path(cases, card)
+
     # 4f. training on the same generated cases; B1 at its shape
     train_launches, train_run = check_training_path(cases, card)
     gj_train_err, _ = check_gauss_jordan_training(train_run, card)
@@ -1166,7 +1322,7 @@ def main() -> None:
 
     # 5. records
     paths = {"per-case": {"gauss_jordan": launches},
-             "train": train_launches,
+             "train": train_launches, "conv": conv_launches,
              "batched": batched_launches, "irregular": irregular_launches,
              "scaling": scaling_launches, "roofline": roofline_launches,
              "frames": frames_launches}

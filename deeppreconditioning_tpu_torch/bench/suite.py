@@ -4,7 +4,10 @@ Counterpart of ``deeppreconditioning_tpu/bench/suite.py::BenchmarkSuite``
 for bench.py's seven techniques: vanilla, jacobi, incomplete_cholesky
 (IC(0), two level-scheduled triangular solves), incomplete_cholesky_neumann
 (IC(0) through truncated Neumann sweeps), algebraic_multigrid (a V(1,1)
-cycle), fsai and learned (NeuralFSAI).
+cycle), fsai and learned: NeuralFSAI, or a conv family
+(``PreconditionerNet``, ``PreconditionerSparseUNet``) over the dataset's
+conv plans, applied as a dense M = L L^T (``learned_apply="dense"``) or in
+factor form z = L (L^T r) (``"factor"``, ``ops/factor_apply``).
 
 Per case (``run``): every technique competes on the RAW system rebuilt
 from the dataset's scaled host sample; per case and technique it records
@@ -24,7 +27,9 @@ range-blocked plan takes it; any other case falls back to the generic
 reference, the generic classical setup computes in the value vector's
 float32 whatever ``dtype`` is.  ``prep_seconds`` adds up that untimed
 input preparation (pattern powers, plan builds), which bench.py reports
-as ``input_prep_s``.
+as ``input_prep_s``.  A conv model's index plans are the dataset's, built
+with it; its factor-apply plans are built on first use, untimed
+(``prep_seconds["plan"]``).
 
 Batched (``run_batched``): the whole split at once per technique, one
 setup over all cases and one fixed-trip PCG over the stacked dense scaled
@@ -42,7 +47,8 @@ bf16 products.  Timing: the setup median of ``setup_reps`` builds after
 the warm-up build (the solve uses that one), one build for the
 host-bound ones (``HOST_BOUND_TECHNIQUES``); the
 solve median of ``reps`` fixed-trip runs.  Not here: the reference's
-dense batched learned path (taken only past ``BANDED_SPREAD_CAP``).
+dense batched learned path (taken only past ``BANDED_SPREAD_CAP``).  As in
+the reference, the batched learned technique takes NeuralFSAI only.
 """
 
 
@@ -60,15 +66,22 @@ import scipy.sparse.linalg  # noqa: F401  (sp.linalg)
 import torch
 
 from deeppreconditioning_tpu_torch import _backend
+from deeppreconditioning_tpu_torch.models import CONV_MODELS
 from deeppreconditioning_tpu_torch.models.neural_fsai import (
     NeuralFSAI,
     neural_fsai_dense_preconditioner,
 )
+from deeppreconditioning_tpu_torch.models.precond_net import output_to_dense
 from deeppreconditioning_tpu_torch.ops.amg import (
     _aggregate,
     _prolongation,
     amg_apply,
     build_amg,
+)
+from deeppreconditioning_tpu_torch.ops.factor_apply import (
+    build_factor_apply_plan,
+    factor_normal_apply,
+    pattern_widths,
 )
 from deeppreconditioning_tpu_torch.ops.banded_factor import (
     band_spread,
@@ -148,6 +161,33 @@ def _neumann_apply(md, r):
 
 def _amg_apply(md, r):
     return amg_apply(md, r)
+
+
+def _learned_factor_values(model, features, plans, scales, n0: int,
+                           dtype=torch.float32):
+    """Conv forward -> the effective L values in factor form: L_eff[i, j] =
+    D_i^-1/2 L~[i, j] for i, j < n0, else 0."""
+    values = model(features.to(dtype), plans)[0]
+    rows, cols = plans[-1].rows[0], plans[-1].cols[0]
+    d_isqrt = 1.0 / torch.sqrt(scales[0].to(dtype))
+    return values * d_isqrt[rows] * ((rows < n0) & (cols < n0))
+
+
+def _learned_setup_device(model, features, plans, scales, n0: int,
+                          dtype=torch.float32):
+    """Conv forward -> the dense effective preconditioner on the RAW
+    system, M = L_eff L_eff^T with L_eff = D^-1/2 L~ masked to the live
+    block (the reference's row mask and column mask with its diagonal
+    exception, which reaches live rows only).  Conv dilation activates
+    sites past n0; left in, they would make CG iterate on a singular
+    padded subspace."""
+    values = model(features.to(dtype), plans)
+    n = scales.shape[1]
+    d_isqrt = 1.0 / torch.sqrt(scales[0].to(dtype))
+    l_eff = d_isqrt[:, None] * output_to_dense(values, plans[-1], n)[0]
+    live = torch.arange(n, device=l_eff.device) < n0
+    l_eff = torch.where(live[:, None] & live[None, :], l_eff, 0.0)
+    return l_eff @ l_eff.T
 
 
 # -- batched applies and setups ------------------------------------------------
@@ -294,16 +334,20 @@ class BenchmarkSuite:
     """Benchmark learned vs classical preconditioners on a test split.
 
     Args:
-        data_set: ``data.datasets.SludgePatternDataSet`` (any family).
-        model: ``NeuralFSAI`` (needed for 'learned'); moved to ``device``
-            and ``dtype``.
+        data_set: ``data.datasets.SludgePatternDataSet`` (any family; built
+            with the conv model's ``specs`` for a conv model).
+        model: ``NeuralFSAI``, ``PreconditionerNet`` or
+            ``PreconditionerSparseUNet`` (needed for 'learned'); moved to
+            ``device`` and ``dtype``.
+        learned_apply: a conv model's apply, ``"dense"`` or ``"factor"``.
         device: defaults to the card (``_backend.device()``, which raises
             without one); the CPU tests pass ``"cpu"``.
     """
 
     data_set: object
-    model: NeuralFSAI | None = None
+    model: torch.nn.Module | None = None
     techniques: tuple = TECHNIQUES
+    learned_apply: str = "dense"
     max_iter: int = 1024
     rtol: float = 1e-8
     dtype: torch.dtype = torch.float32
@@ -342,9 +386,17 @@ class BenchmarkSuite:
         if unknown:
             raise ValueError(f"techniques not ported: {sorted(unknown)}")
         self.device = torch.device(self.device)
+        if self.learned_apply not in ("dense", "factor"):
+            raise ValueError(f"learned_apply {self.learned_apply!r}")
         if "learned" in self.techniques:
-            if not isinstance(self.model, NeuralFSAI):
-                raise ValueError("'learned' needs a NeuralFSAI model")
+            if not isinstance(self.model, (NeuralFSAI, *CONV_MODELS)):
+                raise ValueError("'learned' needs a NeuralFSAI or conv model")
+            if isinstance(self.model, NeuralFSAI):
+                if self.learned_apply != "dense":
+                    raise ValueError("NeuralFSAI takes the dense apply only")
+            elif getattr(self.data_set, "specs", None) is None:
+                raise ValueError("a conv model needs a data set built with "
+                                 "its specs")
             self.model = self.model.to(device=self.device, dtype=self.dtype)
             self.model.eval()
         for name in self.techniques:
@@ -358,6 +410,9 @@ class BenchmarkSuite:
         self._plan_cache = OrderedDict()
         self._bat_cache = None
         self._bat_fsai = {}
+        self._conv_batches = {}
+        self._factor_plans = {}
+        self._factor_widths = None
 
     def _add_prep(self, stage: str, seconds: float) -> None:
         """Accumulate untimed input preparation (pattern powers, plan
@@ -585,6 +640,9 @@ class BenchmarkSuite:
         return (dense_matvec, m, *self._dense_stats(m, n0, need_dense))
 
     def _setup_learned(self, index, a_sp, ell, need_dense, timing=False):
+        if not isinstance(self.model, NeuralFSAI):
+            return self._setup_learned_conv(index, a_sp, ell, need_dense,
+                                            timing)
         n0 = a_sp.shape[0]
         kind, plan, operand, scales = self._fsai_plan(
             index, ell, width=self.model.width,
@@ -599,6 +657,73 @@ class BenchmarkSuite:
         if timing:
             return dense_matvec, m, None, None
         return (dense_matvec, m, *self._dense_stats(m, n0, need_dense))
+
+    def _conv_batch(self, index):
+        """Case ``index``'s ``ConvBatch`` on the device, moved once."""
+        if index not in self._conv_batches:
+            self._conv_batches[index] = self.data_set[index].to(self.device)
+        return self._conv_batches[index]
+
+    def _learned_widths(self):
+        """Dataset-global (w_lower, w_upper) of the final-plan patterns."""
+        if self._factor_widths is None:
+            w_l, w_u = 1, 1
+            for index in range(len(self.data_set)):
+                fin = self.data_set[index].plans[-1]
+                wl, wu = pattern_widths(*(t[0].numpy() for t in fin[1:]))
+                w_l, w_u = max(w_l, wl), max(w_u, wu)
+            self._factor_widths = (w_l, w_u)
+        return self._factor_widths
+
+    def _learned_plan(self, index, ell):
+        """Case ``index``'s ``FactorApplyPlan`` on the device and its L
+        pattern on the host (rows, cols, valid): pattern-only input prep,
+        built once, untimed."""
+        if index not in self._factor_plans:
+            widths = self._learned_widths()
+            prep_start = time.perf_counter()
+            rows, cols, valid = (t[0].numpy()
+                                 for t in self.data_set[index].plans[-1][1:])
+            plan = build_factor_apply_plan(rows, cols, valid, ell.n_pad,
+                                           widths=widths)
+            self._factor_plans[index] = (plan.to(self.device),
+                                         (rows, cols, valid))
+            self._add_prep("plan", time.perf_counter() - prep_start)
+        return self._factor_plans[index]
+
+    def _setup_learned_conv(self, index, a_sp, ell, need_dense,
+                            timing=False):
+        """A conv model's learned technique: the dense M (``z = M r``) or
+        the factor values (``z = L (L^T r)``)."""
+        n0 = a_sp.shape[0]
+        batch = self._conv_batch(index)
+        m = None
+        if self.learned_apply == "factor":
+            plan, (rows, cols, valid) = self._learned_plan(index, ell)
+            vals = _learned_factor_values(self.model, batch.features,
+                                          batch.plans, batch.scales, n0,
+                                          dtype=self.dtype)
+            apply_m, m_data = factor_normal_apply, (plan, vals)
+        else:
+            m = _learned_setup_device(self.model, batch.features,
+                                      batch.plans, batch.scales, n0,
+                                      dtype=self.dtype)
+            apply_m, m_data = dense_matvec, m
+        self.setup_calls["learned"] += 1
+        if timing:
+            return apply_m, m_data, None, None
+        if m is not None:
+            return (apply_m, m_data, *self._dense_stats(m, n0, need_dense))
+        if need_dense:  # factor form: M materialized for kappa only
+            m = _learned_setup_device(self.model, batch.features,
+                                      batch.plans, batch.scales, n0,
+                                      dtype=self.dtype)
+            return (apply_m, m_data, *self._dense_stats(m, n0, True))
+        # else the density of L L^T's pattern
+        keep = valid & (rows < n0) & (cols < n0)
+        l_pat = sp.csr_matrix((np.ones(int(keep.sum())),
+                               (rows[keep], cols[keep])), shape=(n0, n0))
+        return apply_m, m_data, 100.0 * (l_pat @ l_pat.T).nnz / (n0 * n0), None
 
     # -- measurement ------------------------------------------------------
     def _solve(self, ell, b_dev, apply_m, m_data):
@@ -621,7 +746,8 @@ class BenchmarkSuite:
     def setup(self, name: str, index: int):
         """Technique ``name``'s preconditioner for case ``index``, built as
         the timed setup builds it: ``(apply_m, m_data)`` on the suite's
-        device (``m_data`` is M for fsai / learned, the diagonal for
+        device (``m_data`` is M for fsai / learned, (factor-apply plan, L
+        values) for a conv model's factor apply, the diagonal for
         jacobi, the triangular schedules, Neumann operator or AMG
         hierarchy for the IC and AMG techniques, None for vanilla)."""
         a_sp, ell, _ = self._system(index)
@@ -865,6 +991,10 @@ class BenchmarkSuite:
                         p, o, s, n0, self.dtype))
             apply_fn = _dense_apply_batched
         elif name == "learned":
+            if not isinstance(self.model, NeuralFSAI):
+                raise ValueError("the batched learned protocol takes the "
+                                 "NeuralFSAI flagship (conv families: the "
+                                 "per-case protocol)")
             power = self.learned_power or self.fsai_power
             groups = self._batched_fsai_inputs(power, self.model.width)
             spread = max(band_spread(p.out_rows.cpu().numpy(), n_pad)

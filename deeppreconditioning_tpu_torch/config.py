@@ -1,13 +1,15 @@
 """Settings from ``params.yaml`` without a YAML library.
 
 Counterpart of ``deeppreconditioning_tpu/config.py::params_show``, cut to
-the keys the port reads: the benchmark's (model, number_samples,
-mesh_cells, checkpoint_dir) and the trainer's (batch_size,
-learning_rate, patience, seed, fsai_width, fsai_power, data_root).
-``params.yaml`` keeps these as flat ``key: value`` lines; list values
-(``channels``) and nested blocks belong to the conv families and are
-skipped.  Each value takes the type of its default (so ``learning_rate``
-is a float).  ``fsai_width`` and ``fsai_power`` are extra keys in the
+the keys the port reads: the benchmark's (model, data, number_samples,
+mesh_cells, channels, checkpoint_dir) and the trainer's
+(batch_size, learning_rate, patience, seed, fsai_width, fsai_power,
+data_root).  ``params.yaml`` keeps these as flat ``key: value`` lines,
+``channels`` as a block list (``- 16`` lines under ``channels:``); other
+blocks are skipped.  Each value takes the type of its default (so
+``learning_rate`` is a float, a ``channels`` entry an int).
+``get_model_class`` / ``get_dataset_class`` select a class by its name,
+as the reference's.  ``fsai_width`` and ``fsai_power`` are extra keys in the
 reference; their defaults here are ``scripts/train_fsai.py``'s
 fallbacks.  The reference's ``max_epochs`` and ``metrics_dir`` are not
 read: the port's train entry point runs one epoch unless told otherwise
@@ -18,11 +20,14 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
+from typing import List
 
 DEFAULT_PARAMS = {
     "model": "PreconditionerNet",
+    "data": "SludgePatternDataSet",
     "number_samples": 500,
     "mesh_cells": 2,
+    "channels": [1, 16, 32, 64, 32, 16, 1],
     "checkpoint_dir": "assets/checkpoints",
     "batch_size": 4,
     "learning_rate": 0.001,
@@ -37,8 +42,10 @@ DEFAULT_PARAMS = {
 @dataclass
 class Params:
     model: str
+    data: str
     number_samples: int
     mesh_cells: int
+    channels: List[int]
     checkpoint_dir: str
     batch_size: int
     learning_rate: float
@@ -50,15 +57,40 @@ class Params:
 
 
 def params_show(path: str | Path = "params.yaml") -> Params:
-    """Read the flat ``key: value`` lines of ``path`` over the defaults."""
-    merged = dict(DEFAULT_PARAMS)
+    """Read the flat ``key: value`` lines and the ``channels`` list of
+    ``path`` over the defaults."""
+    merged = dict(DEFAULT_PARAMS, channels=list(DEFAULT_PARAMS["channels"]))
     p = Path(path)
+    listing = None  # the list key whose ``- item`` lines follow
     if p.exists():
         for line in p.read_text().splitlines():
             line = line.split("#", 1)[0].rstrip()
+            if listing is not None and line.startswith("- "):
+                merged[listing].append(int(line[2:].strip()))
+                continue
+            listing = None
             if not line or line[0] in " \t-" or ":" not in line:
                 continue
             key, value = (s.strip() for s in line.split(":", 1))
-            if key in merged and value:
+            if key not in merged:
+                continue
+            if isinstance(DEFAULT_PARAMS[key], list):
+                if not value:
+                    merged[key], listing = [], key
+            elif value:
                 merged[key] = type(DEFAULT_PARAMS[key])(value)
     return Params(**merged)
+
+
+def get_model_class(name: str):
+    """Model class by name (``models``' exports)."""
+    import deeppreconditioning_tpu_torch.models as models
+
+    return getattr(models, name)
+
+
+def get_dataset_class(name: str):
+    """Dataset class by name (``data.datasets``' classes)."""
+    import deeppreconditioning_tpu_torch.data.datasets as datasets
+
+    return getattr(datasets, name)

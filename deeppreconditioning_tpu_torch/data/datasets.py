@@ -5,7 +5,6 @@ datasets.py``: ``_prepare_sample`` (tril filter, symmetric Jacobi scaling
 A~ = D^-1/2 A D^-1/2, identity padding to ``dof_pad``, (row, col) sort),
 ``round_up``, the 80/20 ``_split_folders`` rule and the dataset-global
 ``dof_max`` / ``dof_pad`` (read from every case, not only the split's).
-No conv plans: those belong to the conv model families.
 
 Two views of a split: ``SludgePatternDataSet``, the benchmark's (host
 samples in case order, batch size 1), and ``PlannedDataSet``, the
@@ -14,6 +13,16 @@ the dataset's device).  A training batch carries, in place of the
 reference's conv plans, only what the FSAI plan provider reads of them:
 the level-0 tril sites in feature order (``sites``, the rows, cols and
 valid of the reference's ``batch.plans[0]``).
+
+Conv plans (the conv model families) belong to the benchmark's view:
+given ``specs`` (a list of ``ConvSpec``s or an object with ``build``, see
+``models.plan_builder_for``), ``SludgePatternDataSet`` builds every
+case's host plan once, derives the dataset-global level buckets as the
+reference's ``PlannedDataSet._finalize`` does (the seconds in
+``plan_seconds``), and serves case ``index`` as a host ``ConvBatch``
+(features, padded plans, scales; batch size 1), built on first use and
+kept; the benchmark suite moves it to its device.  The NeuralFSAI paths
+read only the host samples and pass no ``specs``.
 
 Cases come from disk (``<family>/case_*/matrix.npz`` etc., the layout
 ``data/fvm.save_case`` writes; the family is ``sludge_patterns``,
@@ -24,12 +33,19 @@ the same host samples.
 from __future__ import annotations
 
 import random
+import time
 from pathlib import Path
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from deeppreconditioning_tpu_torch.ops.sparse_conv import (
+    LayerPlan,
+    build_sample_plan,
+    pad_plans_by_level,
+    stack_plans,
+)
 from deeppreconditioning_tpu_torch.sparse.coo import BatchedCOO
 
 ROOT: Path = Path("./assets/data/raw/")
@@ -145,6 +161,19 @@ def _host_sample(item, dof_pad: int) -> _HostSample:
     return _prepare_sample(*raw, dof_pad)
 
 
+class ConvBatch(NamedTuple):
+    """One case for a conv model (batch size 1)."""
+
+    features: torch.Tensor  # (1, nnz0_pad, 1) scaled tril values, float32
+    plans: Tuple[LayerPlan, ...]  # per layer, batched (1, ...)
+    scales: torch.Tensor  # (1, dof_pad) diagonal D, float32
+
+    def to(self, device) -> "ConvBatch":
+        return ConvBatch(self.features.to(device),
+                         tuple(p.to(device) for p in self.plans),
+                         self.scales.to(device))
+
+
 class SludgePatternDataSet:
     """Host samples of a split in case order (batch size 1, not shuffled:
     the benchmark's view of the split).
@@ -152,7 +181,10 @@ class SludgePatternDataSet:
     ``cases``: in-memory ``FVMCase`` list in generation order; without it
     the cases are read from ``root / family / case_*``.
     ``dof_pad`` is ``round_up(dof_max, 128)`` with ``dof_max`` over every
-    case.
+    case.  With ``specs``, ``data_set[index]`` is case ``index``'s host
+    ``ConvBatch``: ``nnz0_pad`` is ``round_up(max nnz, 256)``
+    over the split, ``level_buckets`` every level's largest site count
+    rounded up to 256, level 0 set to ``nnz0_pad``.
     """
 
     def __init__(
@@ -161,16 +193,60 @@ class SludgePatternDataSet:
         root: Path = ROOT,
         cases: Sequence | None = None,
         family: str = "sludge_patterns",
+        specs=None,
     ) -> None:
         items, self.dof_max = _split_items(stage, root, cases, family)
         self.dof_pad = round_up(self.dof_max, 128)
         self._host = [_host_sample(item, self.dof_pad) for item in items]
+        self.specs = specs
+        self._batches: dict = {}
+        if specs is not None:
+            start = time.perf_counter()
+            self._build_plans()
+            self.plan_seconds = time.perf_counter() - start
 
     def __len__(self) -> int:
         return len(self._host)
 
     def host_sample(self, index: int) -> _HostSample:
         return self._host[index]
+
+    def _build_plans(self) -> None:
+        """Every case's host plan (kept) and the level buckets."""
+        if hasattr(self.specs, "build"):
+            build = self.specs.build
+        else:
+            specs = list(self.specs)
+
+            def build(r, c, hw):
+                return build_sample_plan(r, c, hw, specs)
+        hw = (self.dof_pad, self.dof_pad)
+        self._plans_host = [build(h.rows, h.cols, hw) for h in self._host]
+        self.nnz0_pad = round_up(max(h.rows.shape[0] for h in self._host),
+                                 256)
+        level_max = [max(sizes) for sizes in
+                     zip(*(p.level_nnz for p in self._plans_host))]
+        level_max[0] = max(level_max[0], self.nnz0_pad)
+        self.level_buckets = [round_up(m, 256) for m in level_max]
+        self.level_buckets[0] = self.nnz0_pad
+
+    def __getitem__(self, index: int) -> ConvBatch:
+        if self.specs is None:
+            raise TypeError("a data set without specs has no conv batches")
+        if index < 0 or index >= len(self):
+            raise IndexError(index)
+        if index not in self._batches:
+            h = self._host[index]
+            [padded] = pad_plans_by_level([self._plans_host[index]],
+                                          self.level_buckets)
+            feats = np.zeros((1, self.nnz0_pad, 1), np.float32)
+            feats[0, :h.rows.shape[0], 0] = h.vals
+            self._batches[index] = ConvBatch(
+                torch.from_numpy(feats),
+                tuple(stack_plans([padded])),
+                torch.from_numpy(h.scale.astype(np.float32)[None]),
+            )
+        return self._batches[index]
 
 
 class Sites(NamedTuple):
