@@ -71,6 +71,28 @@ Phases (each raises on failure):
      read back equal to the model.  Then B1 against its plain version on
      one training batch's local systems (w 24, N 4 x 1024), timed as in
      phase 3;
+  4h. the conv families' training, after phase 4f and on its generated
+     cases, through the train entry point (``python -m
+     deeppreconditioning_tpu_torch.train --model PreconditionerNet`` and
+     ``--model PreconditionerSparseUNet``'s ``run``): one epoch each at
+     params.yaml's channels (1, 16, 32, 64, 32, 16, 1) on the 400-case
+     train split shuffled with seed 69, batches of 4 with their conv plans
+     (95 Adam steps of ``inverse_loss`` at lr 1e-3, 5 batches validated),
+     from the JAX init parameters
+     (``tests/fixtures/torch_port/conv_train_init_*.msgpack``).  Held
+     against the JAX CPU float32 epoch (``conv_train_epoch.json``): the
+     same case order, n_pad, nnz0_pad and level buckets; step 0's loss
+     within CONV_STEP0_RTOL, every step within CONV_STEP_RTOL; per case
+     validation iterations within CONV_ITERS_CASE, their mean within
+     CONV_ITERS_MEAN, the validation loss within CONV_VAL_RTOL;
+     ``metrics.jsonl`` equal to the epoch's record; ``best.msgpack``
+     read back equal to the model; no kernel launched and no plain
+     version run on the card (the path has no hand-written kernel: its
+     gather-GEMM and its backward, the dense products and the PCG are
+     PyTorch's, as they are XLA's in the reference).  Prints the plan
+     build seconds (untimed prep), the epoch seconds, the step median /
+     min / max, the validation seconds per batch, the plans' bytes on the
+     card and the peak memory of the run;
   4g. the conv path, on the per-case path's split, through the test-stage
      entry point (``python -m deeppreconditioning_tpu_torch.test``'s
      ``run``, technique learned, median of 3 timed runs per case): the
@@ -221,6 +243,7 @@ from deeppreconditioning_tpu_torch.train import (  # noqa: E402
 from deeppreconditioning_tpu_torch import test as test_entry  # noqa: E402
 from deeppreconditioning_tpu_torch.models import (  # noqa: E402
     conv_model_from_checkpoint,
+    conv_params_to_jax,
 )
 from deeppreconditioning_tpu_torch.train.checkpoint import (  # noqa: E402
     load_checkpoint,
@@ -297,6 +320,19 @@ TRAIN_STEP0_RTOL, TRAIN_STEP_RTOL, TRAIN_VAL_RTOL = 1e-5, 1e-3, 1e-3
 TRAIN_ITERS_CASE, TRAIN_ITERS_MEAN = 1, 0.01
 CONV_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
                 / "conv_iterations.json")
+CONV_TRAIN_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+                      / "conv_train_epoch.json")
+CONV_TRAIN_INIT = {
+    model: REPO / "tests" / "fixtures" / "torch_port" / f"conv_train_init_{tag}"
+    ".msgpack" for model, tag in (("PreconditionerNet", "precond_net"),
+                                  ("PreconditionerSparseUNet", "unet"))}
+# Conv training against the JAX CPU float32 epoch: step 0 sees the same
+# params (float32 rounding of the forward only); later steps also carry
+# the rounding of earlier updates and of the backward's scatter-add, whose
+# atomics on the card sum in no fixed order.  The CPU float32 rehearsal
+# of the port drifted to 7.4e-6 (PreconditionerNet) and 3.3e-4 (U-Net).
+CONV_STEP0_RTOL, CONV_STEP_RTOL, CONV_VAL_RTOL = 1e-5, 1e-3, 1e-3
+CONV_ITERS_CASE, CONV_ITERS_MEAN = 2, 0.01
 CONV_TIMING_REPS = 3
 CONV_APPLY_CALLS, CONV_APPLY_ROUNDS = 100, 11  # the dense vs factor apply
 
@@ -959,7 +995,9 @@ def check_training_path(cases, card):
           f"init validation, epoch, checkpoints); epoch {epoch['seconds']:.2f}"
           f" s; train step median {step_ms:.3f} ms (min "
           f"{min(epoch['step_seconds']) * 1e3:.3f}, max "
-          f"{max(epoch['step_seconds']) * 1e3:.3f}) [{card}]")
+          f"{max(epoch['step_seconds']) * 1e3:.3f}); the epoch's plan "
+          f"builds {epoch['prepare_seconds']:.2f} s, outside the steps "
+          f"[{card}]")
     print(f"  step losses against the JAX CPU f32 epoch: step 0 "
           f"{losses[0]:.7f} vs {ref[0]:.7f} (rel {rel[0]:.2e}, limit "
           f"{TRAIN_STEP0_RTOL}); worst rel {rel.max():.2e} at step "
@@ -1007,6 +1045,124 @@ def check_training_path(cases, card):
     if failures:
         raise AssertionError("; ".join(failures))
     return launches, run
+
+
+def check_conv_training(cases, card):
+    """Phase 4h: one epoch of each conv family through the train entry
+    point against the JAX CPU float32 epoch; returns the launches."""
+    fixture = json.loads(CONV_TRAIN_FIXTURE.read_text())
+    failures = []
+    launches = dict.fromkeys(_backend.KERNELS, 0)
+    for model, ref in fixture["models"].items():
+        out = RESULTS / "train" / model
+        args = train_entry.parse_args([
+            "--model", model, "--checkpoint-dir", str(out),
+            "--metrics-dir", str(out / "metrics"), "--init-from",
+            str(CONV_TRAIN_INIT[model])])
+        params = args.params
+        if ((fixture["seed"], fixture["cases"], fixture["mesh_cells"]) != (
+                SEED, params.number_samples, params.mesh_cells)
+                or fixture["config"] != {
+                    "batch_size": params.batch_size,
+                    "channels": params.channels, "loss": args.loss,
+                    "learning_rate": args.lr, "schedule": params.schedule,
+                    "select_by": args.select_by, "seed": params.seed,
+                    "max_iter": 1024}):
+            raise AssertionError("the conv training fixture describes "
+                                 "another run")
+        (out / "metrics" / "metrics.jsonl").unlink(missing_ok=True)
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _backend.reset_launch_counts()
+        run = train_entry.run(args, cases=cases)
+        run_launches = _backend.launch_counts()
+        plain = _backend.plain_cuda_counts()
+        wall_s = time.perf_counter() - t0
+        peak_bytes = torch.cuda.max_memory_allocated()
+        for name, count in run_launches.items():
+            launches[name] += count
+        data_set, state = run.data_set, run.state
+        [epoch] = state.epochs
+        split = (data_set.order, data_set.dof_pad, data_set.nnz0_pad,
+                 len(data_set) * data_set.batch_size)
+        if split != (fixture["order"], fixture["n_pad"], fixture["nnz0_pad"],
+                     fixture["split_cases"]):
+            failures.append(f"{model}: another split or padding")
+        if data_set.level_buckets != ref["level_buckets"]:
+            failures.append(f"{model}: level buckets "
+                            f"{data_set.level_buckets}, reference "
+                            f"{ref['level_buckets']}")
+        losses = np.asarray(epoch["step_losses"])
+        want = np.asarray(ref["step_losses"])
+        if losses.shape != want.shape:
+            raise AssertionError(f"{model}: {losses.shape[0]} steps, "
+                                 f"reference {want.shape[0]}")
+        rel = np.abs(losses - want) / np.abs(want)
+        plan_bytes = sum(t.numel() * t.element_size()
+                         for i in range(len(data_set))
+                         for plan in data_set[i].plans for t in plan)
+        steps = np.asarray(epoch["step_seconds"]) * 1e3
+        print(f"conv training {model}: {len(data_set)} batches of "
+              f"{data_set.batch_size}, n_pad {data_set.dof_pad}, level "
+              f"buckets {data_set.level_buckets}; plans "
+              f"{data_set.plan_seconds:.2f} s (untimed prep); {wall_s:.1f} s"
+              f" wall (split, plans, epoch, checkpoints); epoch "
+              f"{epoch['seconds']:.2f} s; train step median "
+              f"{np.median(steps):.3f} ms (min {steps.min():.3f}, max "
+              f"{steps.max():.3f}); validation "
+              f"{epoch['val_seconds_per_batch'] * 1e3:.1f} ms per batch; "
+              f"plans on the card {plan_bytes / 2**20:.1f} MiB; peak memory "
+              f"{peak_bytes / 2**30:.3f} GiB ({base_bytes / 2**30:.3f} GiB "
+              f"held before the run) [{card}]")
+        print(f"  step losses against the JAX CPU f32 epoch: step 0 "
+              f"{losses[0]:.7f} vs {want[0]:.7f} (rel {rel[0]:.2e}, limit "
+              f"{CONV_STEP0_RTOL}); worst rel {rel.max():.2e} at step "
+              f"{int(rel.argmax())} (limit {CONV_STEP_RTOL}); first step "
+              f"above 1e-4: "
+              f"{int(np.argmax(rel > 1e-4)) if (rel > 1e-4).any() else None}"
+              f"; epoch mean {epoch['train_loss']:.7f} vs "
+              f"{ref['train_loss']:.7f}")
+        if not rel[0] <= CONV_STEP0_RTOL:
+            failures.append(f"{model}: step 0 loss {losses[0]} vs {want[0]}")
+        if not (rel <= CONV_STEP_RTOL).all():
+            failures.append(f"{model}: step {int(rel.argmax())} loss off by "
+                            f"{rel.max()}")
+        iters = np.asarray(epoch["val_iterations"])
+        ref_iters = np.asarray(ref["val_iterations"])
+        vrel = abs(epoch["val_loss"] - ref["val_loss"]) / abs(ref["val_loss"])
+        mean, ref_mean, worst = hold_counts(
+            f"{model} validation", iters, ref_iters, True, True,
+            CONV_ITERS_CASE, CONV_ITERS_MEAN, failures)
+        print(f"  validation after the epoch: iterations {mean:.3f} (JAX CPU "
+              f"f32 {ref_mean:.3f}, max |delta| per case {worst}), loss "
+              f"{epoch['val_loss']:.6f} vs {ref['val_loss']:.6f} (rel "
+              f"{vrel:.2e}, limit {CONV_VAL_RTOL}); launches {run_launches},"
+              f" plain versions on the card {plain}")
+        if not vrel <= CONV_VAL_RTOL:
+            failures.append(f"{model}: validation loss off by {vrel}")
+        if any(run_launches.values()) or any(plain.values()):
+            failures.append(f"{model}: a kernel or a plain version ran")
+        logged = [json.loads(line) for line in
+                  (out / "metrics" / "metrics.jsonl").read_text()
+                  .splitlines()]
+        if [(r["name"], r["value"]) for r in logged] != [
+                ("train/loss/inverse", epoch["train_loss"]),
+                ("val/loss/inverse", epoch["val_loss"]),
+                ("val/metric/durations", epoch["val_seconds_per_batch"]),
+                ("val/metric/iterations", epoch["val_mean_iterations"])]:
+            failures.append(f"{model}: metrics.jsonl is not the epoch's")
+        payload = load_checkpoint(out / "best.msgpack")
+        if not same_tree(payload["params"], conv_params_to_jax(
+                state.model.state_dict())) or payload["step"] != state.step:
+            failures.append(f"{model}: best.msgpack does not hold the "
+                            "trained model")
+        del run, data_set, state
+    print(card_line())
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
 
 
 def same_tree(a, b) -> bool:
@@ -1296,7 +1452,11 @@ def main() -> None:
     train_launches, train_run = check_training_path(cases, card)
     gj_train_err, _ = check_gauss_jordan_training(train_run, card)
     gj_err = max(gj_err, gj_train_err)
-    del cases, train_run
+    del train_run
+
+    # 4h. the conv families' training on the same generated cases
+    conv_train_launches = check_conv_training(cases, card)
+    del cases
 
     # 4d. the batched protocol on the same split; B1 at its shape
     _, batched_launches = check_batched_path(suite, batched_fixture, card)
@@ -1323,6 +1483,7 @@ def main() -> None:
     # 5. records
     paths = {"per-case": {"gauss_jordan": launches},
              "train": train_launches, "conv": conv_launches,
+             "conv-train": conv_train_launches,
              "batched": batched_launches, "irregular": irregular_launches,
              "scaling": scaling_launches, "roofline": roofline_launches,
              "frames": frames_launches}

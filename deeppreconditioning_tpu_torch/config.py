@@ -3,8 +3,8 @@
 Counterpart of ``deeppreconditioning_tpu/config.py::params_show``, cut to
 the keys the port reads: the benchmark's (model, data, number_samples,
 mesh_cells, channels, checkpoint_dir) and the trainer's
-(batch_size, learning_rate, patience, seed, fsai_width, fsai_power,
-data_root).  ``params.yaml`` keeps these as flat ``key: value`` lines,
+(batch_size, learning_rate, patience, loss, schedule, seed, fsai_width,
+fsai_power, data_root).  ``params.yaml`` keeps these as flat ``key: value`` lines,
 ``channels`` as a block list (``- 16`` lines under ``channels:``); other
 blocks are skipped.  Each value takes the type of its default (so
 ``learning_rate`` is a float, a ``channels`` entry an int).
@@ -32,6 +32,8 @@ DEFAULT_PARAMS = {
     "batch_size": 4,
     "learning_rate": 0.001,
     "patience": 16,
+    "loss": "inverse_loss",
+    "schedule": "constant",
     "seed": 69,
     "fsai_width": 16,
     "fsai_power": 3,
@@ -50,6 +52,8 @@ class Params:
     batch_size: int
     learning_rate: float
     patience: int
+    loss: str
+    schedule: str
     seed: int
     fsai_width: int
     fsai_power: int

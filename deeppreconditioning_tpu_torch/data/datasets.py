@@ -9,20 +9,22 @@ A~ = D^-1/2 A D^-1/2, identity padding to ``dof_pad``, (row, col) sort),
 Two views of a split: ``SludgePatternDataSet``, the benchmark's (host
 samples in case order, batch size 1), and ``PlannedDataSet``, the
 trainer's (shuffled once, ``DeviceBatch``es of ``batch_size`` cases on
-the dataset's device).  A training batch carries, in place of the
-reference's conv plans, only what the FSAI plan provider reads of them:
-the level-0 tril sites in feature order (``sites``, the rows, cols and
-valid of the reference's ``batch.plans[0]``).
+the dataset's device).  Every training batch carries the level-0 tril
+sites in feature order (``sites``, the rows, cols and valid of the
+reference's ``batch.plans[0]``: what the NeuralFSAI plan provider reads).
+``RandomSPDDataSet`` and ``StAnDataSet`` are the reference's other two
+training sets, subclasses of ``PlannedDataSet``.
 
-Conv plans (the conv model families) belong to the benchmark's view:
-given ``specs`` (a list of ``ConvSpec``s or an object with ``build``, see
-``models.plan_builder_for``), ``SludgePatternDataSet`` builds every
-case's host plan once, derives the dataset-global level buckets as the
-reference's ``PlannedDataSet._finalize`` does (the seconds in
-``plan_seconds``), and serves case ``index`` as a host ``ConvBatch``
-(features, padded plans, scales; batch size 1), built on first use and
-kept; the benchmark suite moves it to its device.  The NeuralFSAI paths
-read only the host samples and pass no ``specs``.
+Given ``specs`` (a list of ``ConvSpec``s or an object with ``build``, see
+``models.plan_builder_for``), either view builds every case's host plan
+once and derives the split-global level buckets as the reference's
+``PlannedDataSet._finalize`` does, through one helper (``ConvPlans``;
+the seconds in ``plan_seconds``).  ``SludgePatternDataSet`` then serves
+case ``index`` as a host ``ConvBatch`` (features, padded plans, scales;
+batch size 1), which the benchmark suite moves to its device;
+``PlannedDataSet``'s batches carry their members' padded, stacked
+``plans`` on the data set's device.  Batches are built on first use and
+kept.
 
 Cases come from disk (``<family>/case_*/matrix.npz`` etc., the layout
 ``data/fvm.save_case`` writes; the family is ``sludge_patterns``,
@@ -152,13 +154,50 @@ def _split_items(stage: str, root: Path, cases: Sequence | None,
     return _split_folders(all_items, stage), dof_max
 
 
-def _host_sample(item, dof_pad: int) -> _HostSample:
+def _raw_case(item) -> tuple:
+    """(rows, cols, vals, solution, rhs) of a case folder or an
+    ``FVMCase``."""
     if isinstance(item, Path):
-        raw = _read_case(item)
-    else:
-        m = item.matrix
-        raw = (m.row, m.col, m.data, item.solution, item.rhs)
-    return _prepare_sample(*raw, dof_pad)
+        return _read_case(item)
+    m = item.matrix
+    return m.row, m.col, m.data, item.solution, item.rhs
+
+
+class ConvPlans:
+    """Every sample's host conv plan of a split, kept, and the split's
+    level buckets, as the reference's ``PlannedDataSet._finalize`` derives
+    them: ``nnz0_pad`` is ``round_up(max nnz, 256)`` over the samples, each
+    level's bucket its largest site count rounded up to 256, level 0's
+    ``nnz0_pad``.  ``specs`` is a list of ``ConvSpec``s (a chain) or an
+    object with ``build`` (``models.plan_builder_for``); ``seconds`` is
+    the time of the builds."""
+
+    def __init__(self, specs, host_samples: Sequence[_HostSample],
+                 dof_pad: int) -> None:
+        start = time.perf_counter()
+        if hasattr(specs, "build"):
+            build = specs.build
+        else:
+            specs = list(specs)
+
+            def build(r, c, hw):
+                return build_sample_plan(r, c, hw, specs)
+        hw = (dof_pad, dof_pad)
+        self.host = [build(h.rows, h.cols, hw) for h in host_samples]
+        self.nnz0_pad = round_up(max(h.rows.shape[0] for h in host_samples),
+                                 256)
+        level_max = [max(sizes) for sizes in
+                     zip(*(p.level_nnz for p in self.host))]
+        level_max[0] = max(level_max[0], self.nnz0_pad)
+        self.level_buckets = [round_up(m, 256) for m in level_max]
+        self.level_buckets[0] = self.nnz0_pad
+        self.seconds = time.perf_counter() - start
+
+    def stacked(self, indices: Sequence[int]) -> Tuple[LayerPlan, ...]:
+        """The plans of samples ``indices``, padded to the buckets and
+        stacked: one batched ``LayerPlan`` per layer (CPU, int64)."""
+        return tuple(stack_plans(pad_plans_by_level(
+            [self.host[i] for i in indices], self.level_buckets)))
 
 
 class ConvBatch(NamedTuple):
@@ -182,9 +221,8 @@ class SludgePatternDataSet:
     the cases are read from ``root / family / case_*``.
     ``dof_pad`` is ``round_up(dof_max, 128)`` with ``dof_max`` over every
     case.  With ``specs``, ``data_set[index]`` is case ``index``'s host
-    ``ConvBatch``: ``nnz0_pad`` is ``round_up(max nnz, 256)``
-    over the split, ``level_buckets`` every level's largest site count
-    rounded up to 256, level 0 set to ``nnz0_pad``.
+    ``ConvBatch``, its plans padded to the split's ``ConvPlans`` buckets
+    (``nnz0_pad``, ``level_buckets``).
     """
 
     def __init__(
@@ -197,38 +235,21 @@ class SludgePatternDataSet:
     ) -> None:
         items, self.dof_max = _split_items(stage, root, cases, family)
         self.dof_pad = round_up(self.dof_max, 128)
-        self._host = [_host_sample(item, self.dof_pad) for item in items]
+        self._host = [_prepare_sample(*_raw_case(item), self.dof_pad)
+                      for item in items]
         self.specs = specs
         self._batches: dict = {}
         if specs is not None:
-            start = time.perf_counter()
-            self._build_plans()
-            self.plan_seconds = time.perf_counter() - start
+            self._plans = ConvPlans(specs, self._host, self.dof_pad)
+            self.nnz0_pad = self._plans.nnz0_pad
+            self.level_buckets = self._plans.level_buckets
+            self.plan_seconds = self._plans.seconds
 
     def __len__(self) -> int:
         return len(self._host)
 
     def host_sample(self, index: int) -> _HostSample:
         return self._host[index]
-
-    def _build_plans(self) -> None:
-        """Every case's host plan (kept) and the level buckets."""
-        if hasattr(self.specs, "build"):
-            build = self.specs.build
-        else:
-            specs = list(self.specs)
-
-            def build(r, c, hw):
-                return build_sample_plan(r, c, hw, specs)
-        hw = (self.dof_pad, self.dof_pad)
-        self._plans_host = [build(h.rows, h.cols, hw) for h in self._host]
-        self.nnz0_pad = round_up(max(h.rows.shape[0] for h in self._host),
-                                 256)
-        level_max = [max(sizes) for sizes in
-                     zip(*(p.level_nnz for p in self._plans_host))]
-        level_max[0] = max(level_max[0], self.nnz0_pad)
-        self.level_buckets = [round_up(m, 256) for m in level_max]
-        self.level_buckets[0] = self.nnz0_pad
 
     def __getitem__(self, index: int) -> ConvBatch:
         if self.specs is None:
@@ -237,13 +258,11 @@ class SludgePatternDataSet:
             raise IndexError(index)
         if index not in self._batches:
             h = self._host[index]
-            [padded] = pad_plans_by_level([self._plans_host[index]],
-                                          self.level_buckets)
             feats = np.zeros((1, self.nnz0_pad, 1), np.float32)
             feats[0, :h.rows.shape[0], 0] = h.vals
             self._batches[index] = ConvBatch(
                 torch.from_numpy(feats),
-                tuple(stack_plans([padded])),
+                self._plans.stacked([index]),
                 torch.from_numpy(h.scale.astype(np.float32)[None]),
             )
         return self._batches[index]
@@ -270,6 +289,9 @@ class DeviceBatch(NamedTuple):
     scales: torch.Tensor  # (B, dof_pad) diagonals D: A = D^1/2 A~ D^1/2
     original_sizes: Tuple[int, ...]  # true dofs
     index: int  # the batch's index in its data set
+    # per layer, batched (B, ...) and padded to the data set's level
+    # buckets; None without specs
+    plans: Tuple[LayerPlan, ...] | None = None
 
 
 class PlannedDataSet:
@@ -278,9 +300,17 @@ class PlannedDataSet:
     ``DeviceBatch``es of ``batch_size`` consecutive samples (a trailing
     partial batch is dropped).
 
-    ``nnz0_pad`` is ``round_up(max nnz, 256)`` over the split's samples, so
-    every batch has one shape.  Each batch is built on first use and kept
-    for the data set's life, so it keeps its identity across epochs.
+    This class reads the sludge-pattern or frame cases (``family``) from
+    ``root`` or ``cases``; ``order`` holds the split's case indices in
+    batch order.  ``RandomSPDDataSet`` and ``StAnDataSet`` fill it with
+    other systems.  ``nnz0_pad`` is ``round_up(max nnz, 256)`` over the
+    split's samples, so every batch has one shape.  With ``specs`` (as
+    ``SludgePatternDataSet``'s) every sample's conv plan is built once at
+    construction (``plan_seconds``), the level buckets are taken over the
+    whole split (``ConvPlans``: split views share them), and each batch
+    carries its members' padded, stacked ``plans``.  Each batch is built
+    on first use and kept for the data set's life, so it keeps its
+    identity across epochs.
     """
 
     def __init__(
@@ -294,18 +324,34 @@ class PlannedDataSet:
         seed: int = 69,
         device="cpu",
         dtype: torch.dtype = torch.float32,
+        specs=None,
     ) -> None:
-        items, self.dof_max = _split_items(stage, root, cases, family)
+        items, dof_max = _split_items(stage, root, cases, family)
+        self.order = list(range(len(items)))
         if shuffle:
-            random.Random(seed).shuffle(items)
-        self.items = items
+            random.Random(seed).shuffle(self.order)
+        self.items = [items[i] for i in self.order]
+        self._finalize([_raw_case(item) for item in self.items], dof_max,
+                       batch_size, specs, device, dtype)
+
+    def _finalize(self, raw: Sequence[tuple], dof_max: int, batch_size: int,
+                  specs, device, dtype: torch.dtype) -> None:
+        """Samples from raw (rows, cols, vals, solution, rhs) systems in
+        batch order, and their plans with ``specs``."""
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.dtype = dtype
-        self.dof_pad = round_up(self.dof_max, 128)
-        self._host = [_host_sample(item, self.dof_pad) for item in items]
+        self.dof_max = dof_max
+        self.dof_pad = round_up(dof_max, 128)
+        self._host = [_prepare_sample(*r, self.dof_pad) for r in raw]
         self.nnz0_pad = round_up(max(h.rows.shape[0] for h in self._host),
                                  256)
+        self.specs = specs
+        self._plans = None
+        if specs is not None:
+            self._plans = ConvPlans(specs, self._host, self.dof_pad)
+            self.level_buckets = self._plans.level_buckets
+            self.plan_seconds = self._plans.seconds
         self._batches: dict = {}
 
     def __len__(self) -> int:
@@ -323,8 +369,8 @@ class PlannedDataSet:
         return self._batches[index]
 
     def _build_batch(self, index: int) -> DeviceBatch:
-        members = self._host[index * self.batch_size:
-                             (index + 1) * self.batch_size]
+        span = range(index * self.batch_size, (index + 1) * self.batch_size)
+        members = [self._host[i] for i in span]
         b, nnz0 = len(members), self.nnz0_pad
         feats = np.zeros((b, nnz0), np.float64)
         rows = np.zeros((b, nnz0), np.int64)
@@ -348,6 +394,10 @@ class PlannedDataSet:
         def dev(x, dtype=None):
             return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+        plans = None
+        if self._plans is not None:
+            plans = tuple(p.to(self.device)
+                          for p in self._plans.stacked(span))
         return DeviceBatch(
             features=dev(feats[..., None], self.dtype),
             sites=Sites(dev(rows), dev(cols), dev(valid)),
@@ -359,4 +409,100 @@ class PlannedDataSet:
             scales=dev(np.stack([h.scale for h in members]), self.dtype),
             original_sizes=tuple(h.original_size for h in members),
             index=index,
+            plans=plans,
         )
+
+
+class RandomSPDDataSet(PlannedDataSet):
+    """Random sparse SPD systems (the reference's ``RandomSPDDataSet``):
+    A = B B^T + 1e-3 I with B strictly lower-triangular, ``(1 -
+    sparsity)`` of its entries standard normal at random sites; x = 1,
+    b = A x.  All ``length`` systems are drawn from
+    ``np.random.default_rng(seed)`` in the reference's order; the first
+    80% form the train split, the rest the test split, shuffled with
+    ``random.Random(seed)``."""
+
+    def __init__(
+        self,
+        stage: str,
+        dof: int,
+        batch_size: int,
+        specs=None,
+        sparsity: float = 0.99,
+        length: int = 1000,
+        shuffle: bool = True,
+        seed: int = 69,
+        device="cpu",
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        if not 0 < sparsity <= 1:
+            raise ValueError(f"sparsity {sparsity} not in (0, 1]")
+        if stage not in ("train", "test"):
+            raise ValueError(f"Invalid stage {stage}")
+        rng = np.random.default_rng(seed)
+        cut = length * 80 // 100
+        keep = range(cut) if stage == "train" else range(cut, length)
+        tri_r, tri_c = np.tril_indices(dof, k=-1)
+        n_off = int((1 - sparsity) * tri_r.shape[0])
+        raw = []
+        for i in range(length):
+            sel = rng.choice(tri_r.shape[0], size=n_off, replace=False)
+            bmat = np.zeros((dof, dof))
+            bmat[tri_r[sel], tri_c[sel]] = rng.standard_normal(n_off)
+            if i not in keep:
+                continue
+            a = bmat @ bmat.T + 1e-3 * np.eye(dof)
+            x = np.ones(dof)
+            r, c = np.nonzero(a)
+            raw.append((r, c, a[r, c], x, a @ x))
+        if shuffle:
+            random.Random(seed).shuffle(raw)
+        self._finalize(raw, dof, batch_size, specs, device, dtype)
+
+
+def download_from_kaggle() -> None:
+    """The StAn download of the reference: this package reaches no
+    network, so it raises; mirror kaggle.com/datasets/zurutech/
+    stand-small-problems into ``ROOT / "stand_small_{train,test}"``."""
+    raise RuntimeError(
+        "no network access: place the Kaggle StAn npz files under "
+        "ROOT/stand_small_{train,test} by hand"
+    )
+
+
+class StAnDataSet(PlannedDataSet):
+    """The Kaggle StAn frame-structure systems (the reference's
+    ``StAnDataSet``) from ``root / stand_small_{stage} / *.npz`` (keys in
+    order: indices (2, nnz), values, solution, rhs), files sorted then
+    shuffled with ``random.Random(seed)``, the first ``limit`` kept;
+    padded to the reference's ``DOF_MAX``."""
+
+    DOF_MAX = 5166
+
+    def __init__(
+        self,
+        stage: str,
+        batch_size: int,
+        specs=None,
+        shuffle: bool = True,
+        root: Path = ROOT,
+        seed: int = 69,
+        limit: int | None = None,
+        device="cpu",
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        files = sorted(Path(root).glob(f"stand_small_{stage}/*.npz"))
+        if not files:
+            raise FileNotFoundError(
+                f"no StAn files under {root}/stand_small_{stage}")
+        if shuffle:
+            random.Random(seed).shuffle(files)
+        if limit:
+            files = files[:limit]
+        raw = []
+        for f in files:
+            with np.load(f) as z:
+                indices, values, solution, rhs = (z[k] for k in list(z.keys()))
+            raw.append((indices[0], indices[1], values, solution, rhs))
+        self.files = files
+        self._finalize(raw, self.DOF_MAX, batch_size, specs, device, dtype)

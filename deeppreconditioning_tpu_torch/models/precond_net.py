@@ -11,8 +11,10 @@ The network runs over the index plans of ``ops/sparse_conv``: features
 are a dense (B, nnz_pad, C) tensor and every layer is one gather-GEMM.
 Parameters carry the checkpoints' names and layouts: ``w{li}`` (K, Cin,
 Cout), ``b{li}`` (Cout,), ``prelu{li}`` (1,).  They are loaded from a
-checkpoint (``models.conv_model_from_checkpoint``); the module's own values are
-placeholders (zero weights, the 0.25 PReLU slope).  Softplus is
+checkpoint (``models.conv_model_from_checkpoint``) or drawn by
+``init_params`` (torch's Conv2d default, as the reference's init); the
+module's own values are placeholders (zero weights, the 0.25 PReLU
+slope).  Softplus is
 ``logaddexp(x, 0)``, as ``jax.nn.softplus``: torch's ``softplus`` returns x
 unchanged above its threshold.  The forward takes a batch, so the
 reference's vmapped ``batched_apply(model, params, features, plans)`` is
@@ -21,6 +23,7 @@ reference's vmapped ``batched_apply(model, params, features, plans)`` is
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import torch
@@ -52,6 +55,25 @@ def conv_param(k: int, cin: int, cout: int) -> Tuple[nn.Parameter, ...]:
     """Placeholder weight (K, Cin, Cout) and bias (Cout,), zero."""
     return (nn.Parameter(torch.zeros(k, cin, cout)),
             nn.Parameter(torch.zeros(cout)))
+
+
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """The reference's fresh initialization of a conv model, in place,
+    drawn from ``generator``: every weight (K, Cin, Cout) and bias uniform
+    in +-1 / sqrt(Cin K) (torch's Conv2d default, the reference's
+    ``_torch_conv_init``), every PReLU slope 0.25.  This matches the
+    reference's distribution, not its bits: the draws come from torch's
+    generator, not from a JAX key."""
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            if name.startswith("prelu"):
+                param.fill_(0.25)
+                continue
+            w = getattr(model, "w" + name[1:])
+            bound = 1.0 / math.sqrt(w.shape[0] * w.shape[1])
+            u = torch.rand(param.shape, generator=generator,
+                           dtype=torch.float64)
+            param.copy_((2.0 * u - 1.0) * bound)
 
 
 def output_transform(x: torch.Tensor, final: LayerPlan) -> torch.Tensor:

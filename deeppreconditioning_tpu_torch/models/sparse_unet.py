@@ -13,7 +13,8 @@ Each layer runs, in this order: the conv, LeakyReLU 0.01 (every layer but
 layer's output.  As in the JAX package, the output conv emits one
 channel (the reference's emits ``channels[5]``, of which only channel 0
 is read).  Parameters: ``w_{name}`` (K, Cin, Cout), ``b_{name}`` (Cout,),
-as the checkpoints store them.
+as the checkpoints store them; ``models.precond_net.init_params`` draws
+them fresh, as for ``PreconditionerNet``.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ tree: maps in their key order, strings as str, ints in their shortest
 form, Python floats as float64, ndarrays as extension type 1 and numpy
 scalars as type 3, their payload bytes as bin.  ``adam_state_to_jax`` / ``adam_state_from_jax``
 map a ``torch.optim.Adam`` state to and from optax's ``adam`` state as
-Flax serializes it: ``{"0": {"count", "mu", "nu"}, "1": {}}``.
+Flax serializes it: ``{"0": {"count", "mu", "nu"}, "1": {}}``, or
+``"1": {"count"}`` when the rate follows a schedule.
 """
 
 from __future__ import annotations
@@ -214,12 +215,14 @@ def save_checkpoint(path: Path, payload: dict) -> None:
 
 
 def adam_state_to_jax(optimizer: torch.optim.Adam, names: dict,
-                      to_tree) -> dict:
+                      to_tree, scheduled: bool = False) -> dict:
     """optax ``adam`` state of ``optimizer`` as Flax serializes it:
-    ``{"0": {"count": int32 0-d, "mu": tree, "nu": tree}, "1": {}}``.
-    ``names`` maps each parameter to its ``state_dict`` key, ``to_tree``
-    maps a key -> tensor dict onto the parameter tree.  Before the first
-    step the moments are zero and the count 0."""
+    ``{"0": {"count": int32 0-d, "mu": tree, "nu": tree}, "1": {}}``;
+    with ``scheduled`` (``adam(schedule)``) ``"1"`` holds the schedule's
+    count, equal to Adam's.  ``names`` maps each parameter to its
+    ``state_dict`` key, ``to_tree`` maps a key -> tensor dict onto the
+    parameter tree.  Before the first step the moments are zero and the
+    count 0."""
     mu, nu, count = {}, {}, 0
     for param, key in names.items():
         st = optimizer.state.get(param, {})
@@ -227,8 +230,9 @@ def adam_state_to_jax(optimizer: torch.optim.Adam, names: dict,
         nu[key] = st.get("exp_avg_sq", torch.zeros_like(param))
         if "step" in st:
             count = int(st["step"])
-    return {"0": {"count": np.asarray(count, np.int32),
-                  "mu": to_tree(mu), "nu": to_tree(nu)}, "1": {}}
+    count = np.asarray(count, np.int32)
+    return {"0": {"count": count, "mu": to_tree(mu), "nu": to_tree(nu)},
+            "1": {"count": count.copy()} if scheduled else {}}
 
 
 def adam_state_from_jax(optimizer: torch.optim.Adam, names: dict,
@@ -250,5 +254,6 @@ def adam_state_from_jax(optimizer: torch.optim.Adam, names: dict,
 def load_checkpoint(path: Path) -> dict:
     """Checkpoint payload, the tree ``flax.serialization.msgpack_restore``
     gives: {"params", "opt_state", "step", ...} with numpy leaves
-    (NeuralFSAI payloads also carry width, hidden, poly_degree, power)."""
+    (conv payloads also carry channels; NeuralFSAI payloads width,
+    hidden, poly_degree, power)."""
     return unpackb(Path(path).read_bytes())
