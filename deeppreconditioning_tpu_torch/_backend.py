@@ -165,7 +165,7 @@ def kernel_library() -> ctypes.CDLL:
     lib.dp_dia_spmv_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.dp_dia_spmv_f32.restype = ctypes.c_int
     lib.dp_bsr_spmm_f32.argtypes = [

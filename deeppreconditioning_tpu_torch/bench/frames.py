@@ -55,9 +55,10 @@ def generate_frame_cases(samples: int = SAMPLES, seed: int = SEED):
 
 
 def frames_suite(device, results_directory: Path = RESULTS,
-                 dtype=torch.float32) -> BenchmarkSuite:
+                 dtype=torch.float32,
+                 timing_reps: int = TIMING_REPS) -> BenchmarkSuite:
     """The suite over the frames test split with the frames checkpoint,
-    not yet run."""
+    not yet run; ``timing_reps`` timed runs per case and technique."""
     data_set = SludgePatternDataSet(stage="test", cases=generate_frame_cases())
     payload = load_checkpoint(CHECKPOINT)
     return BenchmarkSuite(
@@ -65,7 +66,7 @@ def frames_suite(device, results_directory: Path = RESULTS,
         techniques=TECHNIQUES,
         dtype=dtype,
         device=device,
-        timing_reps=TIMING_REPS,
+        timing_reps=timing_reps,
         kappa_cases=KAPPA_CASES,
         fsai_power=FSAI_POWER,
         learned_power=int(payload.get("power", FSAI_POWER)),
@@ -73,11 +74,11 @@ def frames_suite(device, results_directory: Path = RESULTS,
     )
 
 
-def run(device: torch.device,
-        results_directory: Path = RESULTS) -> BenchmarkSuite:
+def run(device: torch.device, results_directory: Path = RESULTS,
+        timing_reps: int = TIMING_REPS) -> BenchmarkSuite:
     """Build the frames split and the learned model, run the suite,
     return it."""
-    suite = frames_suite(device, results_directory)
+    suite = frames_suite(device, results_directory, timing_reps=timing_reps)
     suite.run()
     return suite
 

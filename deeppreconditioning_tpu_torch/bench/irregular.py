@@ -58,9 +58,11 @@ def generate_irregular_cases(samples: int = SAMPLES, seed: int = SEED,
 
 
 def irregular_suite(device, results_directory: Path = RESULTS,
-                    dtype=torch.float32, cases=None) -> BenchmarkSuite:
+                    dtype=torch.float32, cases=None,
+                    timing_reps: int = TIMING_REPS) -> BenchmarkSuite:
     """The suite over the irregular test split (of ``cases``, by default
-    bench.py's 100) with the flagship checkpoint, not yet run."""
+    bench.py's 100) with the flagship checkpoint, not yet run;
+    ``timing_reps`` timed runs per case and technique."""
     if cases is None:
         cases = generate_irregular_cases()
     data_set = SludgePatternDataSet(stage="test", cases=cases)
@@ -69,7 +71,7 @@ def irregular_suite(device, results_directory: Path = RESULTS,
         techniques=TECHNIQUES,
         dtype=dtype,
         device=device,
-        timing_reps=TIMING_REPS,
+        timing_reps=timing_reps,
         kappa_cases=KAPPA_CASES,
         fsai_power=POWER,
         learned_power=POWER,
@@ -77,11 +79,11 @@ def irregular_suite(device, results_directory: Path = RESULTS,
     )
 
 
-def run(device: torch.device,
-        results_directory: Path = RESULTS) -> BenchmarkSuite:
+def run(device: torch.device, results_directory: Path = RESULTS,
+        timing_reps: int = TIMING_REPS) -> BenchmarkSuite:
     """Build the irregular split and the learned model, run the suite,
     return it."""
-    suite = irregular_suite(device, results_directory)
+    suite = irregular_suite(device, results_directory, timing_reps=timing_reps)
     suite.run()
     return suite
 

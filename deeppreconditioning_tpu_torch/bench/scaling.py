@@ -1,27 +1,44 @@
 """The structured-grid scaling path: 64^3 / 128^3 Poisson on the card.
 
-    python -m deeppreconditioning_tpu_torch.bench.scaling
+    python -m deeppreconditioning_tpu_torch.bench.scaling [--shapes 64,128]
+        [--ckpt CKPT] [--smoother-ckpt CKPT] [--reps 5] [--sigma 1.0]
+        [--rhs random|ax] [--k-solves 2,4,8] [--seq-out CSV] [--out CSV]
+        [--no-gmg] [--device cpu]
 
-Counterpart of ``scripts/scaling_learned.py::run_scaling`` (without AMG
-and the multi-RHS protocol) as ``bench.py``'s scaling section calls it:
-variable-coefficient Poisson (lognormal kappa, sigma 1.0, coefficients
-from ``default_rng(1)``), a random right-hand side from
-``default_rng(2)``, rtol 1e-8 on ||r||^2 / ||b||^2, and the techniques
-vanilla, jacobi, fsai (structured FSAI), learned (the structured
-NeuralFSAI head ``deg1_random.msgpack``), gmg_jacobi and gmg_learned
-(geometric multigrid, the finest level smoothed by ``deg0_p1.msgpack``).
-Every CG operator is a DIA matvec (kernel B2 on the card).
+Counterpart of ``scripts/scaling_learned.py::run_scaling`` (without its
+AMG technique, ``--with-amg``) as ``bench.py``'s scaling section calls
+it: variable-coefficient Poisson (lognormal kappa, sigma 1.0,
+coefficients from ``default_rng(1)``; ``--sigma 0`` the constant
+``poisson_dia``), a right-hand side from ``default_rng(2)`` (random, or
+``--rhs ax``: b = A x* with x* standard normal, the known solution), rtol
+1e-8 on ||r||^2 / ||b||^2, and the techniques vanilla, jacobi, fsai
+(structured FSAI), learned (the structured NeuralFSAI head, by default
+``deg1_random.msgpack``), gmg_jacobi and gmg_learned (geometric
+multigrid, the finest level smoothed by the head ``deg0_p1.msgpack`` in
+the learned checkpoint's folder, or ``--smoother-ckpt``; classical FSAI
+where there is none).  Every CG operator is a DIA matvec (kernel B2 on
+the card).
 
 Per shape and technique: the setup, timed with CUDA events (median of
 ``reps`` after a warm-up), the chunked PCG solve for the iteration count
 and convergence, and the timed solve: ``pcg_fixed_trips`` with
-``min(iterations + 2, 1024)`` trips.  Writes the reference's CSV schema
-to ``assets/results/torch/scaling_learned.csv``.  Needs a CUDA device
-when run as a module; the tests call ``run_scaling`` on the CPU.
+``min(iterations + 2, 1024)`` trips, whose unscaled run gives
+``x_rel_err`` under ``--rhs ax``.  Writes the reference's CSV schema to
+``assets/results/torch/scaling_learned.csv``.  With ``--k-solves`` each
+technique then solves sequences of k right-hand sides of the same
+operator (``pcg_sequence_fixed_trips``, ``min(int(1.3 iterations) + 4,
+1024)`` trips each; random rhs: b random-walks from ``default_rng(7 +
+k)``; ``ax``: ``poisson_rhs_sequence``), timed as one span (median of
+``reps // 2``), written in the reference's ``multi_rhs.csv`` schema, and
+the smallest k at which learned's total beats every other technique's is
+the shape's ``crossover_k``.  Needs a CUDA device unless ``--device cpu``;
+the tests call ``run_scaling`` on the CPU.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -30,7 +47,10 @@ import torch
 
 from deeppreconditioning_tpu_torch import _backend
 from deeppreconditioning_tpu_torch.bench.suite import _diag_apply
-from deeppreconditioning_tpu_torch.data.poisson import poisson_coeff_dia
+from deeppreconditioning_tpu_torch.data.poisson import (
+    poisson_coeff_dia,
+    poisson_rhs_sequence,
+)
 from deeppreconditioning_tpu_torch.models.neural_fsai import (
     neural_fsai_from_checkpoint,
 )
@@ -50,8 +70,10 @@ from deeppreconditioning_tpu_torch.ops.structured_fsai import (
 from deeppreconditioning_tpu_torch.solvers.cg import (
     identity_apply,
     pcg_fixed_trips,
+    pcg_sequence_fixed_trips,
     preconditioned_conjugate_gradient,
 )
+from deeppreconditioning_tpu_torch.sparse.dia import poisson_dia
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
 from deeppreconditioning_tpu_torch.utils.profiling import time_call
 
@@ -60,10 +82,13 @@ CHECKPOINT_DIR = REPO / "assets" / "checkpoints_structured"
 CHECKPOINT = "deg1_random.msgpack"
 SMOOTHER_CHECKPOINT = "deg0_p1.msgpack"
 RESULTS_CSV = REPO / "assets" / "results" / "torch" / "scaling_learned.csv"
+SEQ_CSV = REPO / "assets" / "results" / "torch" / "multi_rhs.csv"
 SHAPES = (64, 128)
 SIGMA = 1.0
 COEFF_SEED = 1
 RHS_SEED = 2
+SEQ_SEED = 7  # the sequence of length k draws from default_rng(7 + k)
+SEQ_STEP = 0.1  # the random walk's relative step
 RTOL = 1e-8
 MAX_ITER = 1024
 TIMING_REPS = 5
@@ -73,6 +98,9 @@ STRUCTURED_TECHNIQUES = ("fsai", "learned", "gmg_learned")
 CSV_COLUMNS = ("shape", "technique", "n", "sigma", "iterations", "setup_s",
                "solve_s", "total_s", "converged", "x_rel_err",
                "safeguard_fallback")
+SEQ_COLUMNS = ("shape", "technique", "n", "sigma", "k_solves",
+               "iterations_mean", "setup_s", "solves_s", "total_s",
+               "converged")
 
 
 @dataclass
@@ -82,7 +110,10 @@ class ScalingRun:
     ``setup_calls`` counts the technique's setup builds (warm-up, timing
     reps and the kept one); for fsai, learned and gmg_learned each build
     runs one ``structured_setup``.  ``launches`` / ``plain_on_cuda`` are
-    the kernel counters over the technique's setups and solves.
+    the kernel counters over the technique's setups, solves and
+    sequences.  ``seq_rows`` are the multi-RHS rows, ``details`` the
+    reference's JSON (per shape and technique the iterations and total
+    ms, per shape the crossover k).
     """
 
     rows: list = field(default_factory=list)
@@ -90,26 +121,68 @@ class ScalingRun:
     launches: dict = field(default_factory=dict)
     plain_on_cuda: dict = field(default_factory=dict)
     learned_q: dict = field(default_factory=dict)  # side -> list
+    seq_rows: list = field(default_factory=list)
+    details: dict = field(default_factory=dict)
+
+
+def scaling_problem(side: int, dtype=torch.float32, device=None,
+                    sigma: float = SIGMA, rhs: str = "random"):
+    """The side^3 operator (sorted DIA bands; ``sigma`` 0: constant
+    coefficients), its rhs and the known solution x* (None for the random
+    rhs), rounded through float32 as the reference builds them."""
+    shape = (side, side, side)
+    if sigma > 0:
+        a = poisson_coeff_dia(shape, rng=np.random.default_rng(COEFF_SEED),
+                              sigma=sigma, dtype=dtype, device=device)
+    else:
+        a = poisson_dia(shape, dtype=dtype, device=device)
+    a = dia_sorted_by_offset(a)
+    vec = np.zeros(a.n_pad, np.float32)
+    vec[:a.n] = np.random.default_rng(RHS_SEED).standard_normal(a.n)
+    vec = torch.tensor(vec, dtype=dtype, device=device)
+    if rhs == "ax":
+        return a, dia_matvec(a, vec), vec
+    return a, vec, None
 
 
 def scaling_operator(side: int, dtype=torch.float32, device=None):
-    """The side^3 operator (sorted DIA bands) and the random rhs, rounded
-    through float32 as the reference builds it."""
-    shape = (side, side, side)
-    a = dia_sorted_by_offset(poisson_coeff_dia(
-        shape, rng=np.random.default_rng(COEFF_SEED), sigma=SIGMA,
-        dtype=dtype, device=device,
-    ))
-    b = np.zeros(a.n_pad, np.float32)
-    b[:a.n] = np.random.default_rng(RHS_SEED).standard_normal(a.n)
-    return a, torch.tensor(b, dtype=dtype, device=device)
+    """The side^3 operator and the random rhs of the default run."""
+    a, b, _ = scaling_problem(side, dtype, device)
+    return a, b
 
 
-def load_models(dtype=torch.float32, device=None):
-    """(learned head, its pattern power, smoother head, its power)."""
+def rhs_sequence(a, b: torch.Tensor, x_star, k: int) -> torch.Tensor:
+    """The reference's k right-hand sides: with a known solution
+    ``poisson_rhs_sequence`` from ``default_rng(7 + k)``; otherwise b
+    itself random-walks (relative step 0.1 on the n rows, float32)."""
+    rng = np.random.default_rng(SEQ_SEED + k)
+    if x_star is not None:
+        seq = poisson_rhs_sequence(a, k, rng, step=SEQ_STEP)[0]
+    else:
+        seq = np.zeros((k, a.n_pad), np.float32)
+        cur = b.cpu().numpy().astype(np.float32)
+        for t in range(k):
+            seq[t] = cur
+            cur = cur.copy()
+            cur[:a.n] += SEQ_STEP * rng.standard_normal(a.n).astype(
+                np.float32)
+    return torch.as_tensor(seq, device=b.device).to(b.dtype)
+
+
+def load_models(dtype=torch.float32, device=None, ckpt=None,
+                smoother_ckpt=None):
+    """(learned head, its pattern power, smoother head or None, its
+    power).  The smoother defaults to ``deg0_p1.msgpack`` beside the
+    learned checkpoint, if there is one."""
+    ckpt = Path(ckpt) if ckpt else CHECKPOINT_DIR / CHECKPOINT
+    smoother = (Path(smoother_ckpt) if smoother_ckpt
+                else ckpt.parent / SMOOTHER_CHECKPOINT)
     models = []
-    for name in (CHECKPOINT, SMOOTHER_CHECKPOINT):
-        payload = load_checkpoint(CHECKPOINT_DIR / name)
+    for path in (ckpt, smoother):
+        if path is smoother and not path.exists():
+            models += [None, 1]
+            continue
+        payload = load_checkpoint(path)
         model = neural_fsai_from_checkpoint(payload).to(device=device,
                                                         dtype=dtype)
         models += [model.eval(), int(payload["power"])]
@@ -141,27 +214,40 @@ def _setups(a, shape, models):
     }
 
 
-def write_csv(path: Path, rows: list) -> None:
+def write_csv(path: Path, rows: list, columns=CSV_COLUMNS) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     with path.open("w") as fio:
-        fio.write(",".join(CSV_COLUMNS) + "\n")
+        fio.write(",".join(columns) + "\n")
         for row in rows:
-            fio.write(",".join(str(row.get(k, "")) for k in CSV_COLUMNS)
-                      + "\n")
+            fio.write(",".join(str(row.get(k, "")) for k in columns) + "\n")
+
+
+def crossover_k(seq_rows: list, side: int, k_solves) -> int | None:
+    """The smallest k at which learned's total is at most every other
+    technique's at the same k (the reference's measured crossover)."""
+    for k in k_solves:
+        at_k = {r["technique"]: r["total_s"] for r in seq_rows
+                if r["k_solves"] == k and r["shape"] == f"{side}^3"}
+        others = [v for t, v in at_k.items() if t != "learned"]
+        if "learned" in at_k and others and at_k["learned"] <= min(others):
+            return k
+    return None
 
 
 @torch.no_grad()
 def run_scaling(device, shapes=SHAPES, dtype=torch.float32,
                 reps: int = TIMING_REPS, out: Path | None = RESULTS_CSV,
-                techniques=TECHNIQUES) -> ScalingRun:
+                techniques=TECHNIQUES, sigma: float = SIGMA,
+                rhs: str = "random", k_solves=(), seq_out: Path | None = None,
+                ckpt=None, smoother_ckpt=None) -> ScalingRun:
     """Run the scaling comparison on ``device`` (see the module
     docstring); the kernel counters are reset per technique."""
     device = torch.device(device)
-    models = load_models(dtype, device)
+    models = load_models(dtype, device, ckpt, smoother_ckpt)
     run = ScalingRun()
     for side in shapes:
         shape = (side, side, side)
-        a, b = scaling_operator(side, dtype, device)
+        a, b, x_star = scaling_problem(side, dtype, device, sigma, rhs)
         setups = _setups(a, shape, models)
         for name in techniques:
             apply_m, build = setups[name]
@@ -196,15 +282,17 @@ def run_scaling(device, shapes=SHAPES, dtype=torch.float32,
                     f"{side}^3 {name}: {trips} fixed trips took "
                     f"{int(fixed.iterations)} iterations, the chunked "
                     f"solve {iters}")
+            err = float("nan")
+            if x_star is not None:  # from the unscaled fixed-trip solve
+                err = float(torch.linalg.vector_norm(
+                    fixed.x[:a.n] - x_star[:a.n])
+                    / torch.linalg.vector_norm(x_star[:a.n]))
             solve_s = time_call(solve, device, reps=reps, warmup=0)
-            run.launches[key] = _backend.launch_counts()
-            run.plain_on_cuda[key] = _backend.plain_cuda_counts()
-            run.setup_calls[key] = calls[0]
             row = {
                 "shape": f"{side}^3", "technique": name, "n": a.n,
-                "sigma": SIGMA, "iterations": iters, "setup_s": setup_s,
+                "sigma": sigma, "iterations": iters, "setup_s": setup_s,
                 "solve_s": solve_s, "total_s": setup_s + solve_s,
-                "converged": converged, "x_rel_err": float("nan"),
+                "converged": converged, "x_rel_err": err,
             }
             if name == "learned":
                 q = m_data[2].double().cpu().numpy()
@@ -212,23 +300,88 @@ def run_scaling(device, shapes=SHAPES, dtype=torch.float32,
                 row["safeguard_fallback"] = bool(
                     np.allclose(q, np.eye(1, q.shape[0])[0]))
             run.rows.append(row)
+            run.details[f"{side}_{name}"] = {
+                "it": iters, "total_ms": (setup_s + solve_s) * 1e3}
             if out is not None:
                 write_csv(Path(out), run.rows)
+            for k in k_solves:
+                b_seq = rhs_sequence(a, b, x_star, k)
+                seq_trips = min(int(iters * 1.3) + 4, MAX_ITER)
+
+                def sequence(_apply=apply_m, _m=m_data, _trips=seq_trips,
+                             _b=b_seq):
+                    return pcg_sequence_fixed_trips(
+                        dia_matvec, a, _b, _apply, _m, rtol=RTOL,
+                        max_iter=MAX_ITER, trips=_trips)
+
+                _, its, ress = sequence()
+                solves_s = time_call(sequence, device,
+                                     reps=max(reps // 2, 1), warmup=0)
+                run.seq_rows.append({
+                    "shape": f"{side}^3", "technique": name, "n": a.n,
+                    "sigma": sigma, "k_solves": k,
+                    "iterations_mean": float(its.double().mean()),
+                    "setup_s": setup_s, "solves_s": solves_s,
+                    "total_s": setup_s + solves_s,
+                    "converged": bool((ress < RTOL).all()),
+                })
+                if seq_out is not None:
+                    write_csv(Path(seq_out), run.seq_rows, SEQ_COLUMNS)
+            run.launches[key] = _backend.launch_counts()
+            run.plain_on_cuda[key] = _backend.plain_cuda_counts()
+            run.setup_calls[key] = calls[0]
+        if k_solves:
+            k = crossover_k(run.seq_rows, side, k_solves)
+            if k is not None:
+                run.details[f"{side}_crossover_k"] = k
     return run
 
 
-def main() -> None:
-    device = _backend.device()
-    run = run_scaling(device)
-    print(f"device: {torch.cuda.get_device_name(device)}; CSV "
-          f"{RESULTS_CSV}")
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--shapes", default=",".join(map(str, SHAPES)))
+    parser.add_argument("--ckpt", default=str(CHECKPOINT_DIR / CHECKPOINT))
+    parser.add_argument("--smoother-ckpt", default=None)
+    parser.add_argument("--reps", type=int, default=TIMING_REPS)
+    parser.add_argument("--sigma", type=float, default=SIGMA,
+                        help="lognormal contrast; 0 gives the constant-"
+                        "coefficient ladder")
+    parser.add_argument("--rhs", default="random", choices=["random", "ax"])
+    parser.add_argument("--k-solves", default="",
+                        help="sequence lengths of the multi-RHS protocol, "
+                        "e.g. 2,4,8; empty: off")
+    parser.add_argument("--seq-out", default=str(SEQ_CSV))
+    parser.add_argument("--out", default=str(RESULTS_CSV))
+    parser.add_argument("--no-gmg", action="store_true")
+    parser.add_argument("--device", default=None,
+                        help="'cpu' for the CPU; the card otherwise")
+    args = parser.parse_args(argv)
+    device = (torch.device(args.device) if args.device
+              else _backend.device())
+    ks = tuple(int(s) for s in args.k_solves.split(",") if s)
+    techniques = tuple(t for t in TECHNIQUES
+                       if not (args.no_gmg and t.startswith("gmg")))
+    run = run_scaling(device, tuple(int(s) for s in args.shapes.split(",")),
+                      reps=args.reps, out=Path(args.out),
+                      techniques=techniques, sigma=args.sigma, rhs=args.rhs,
+                      k_solves=ks, seq_out=Path(args.seq_out) if ks else None,
+                      ckpt=args.ckpt, smoother_ckpt=args.smoother_ckpt)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"device: {name}; CSV {args.out}" + (f", {args.seq_out}" if ks
+                                               else ""))
     print(f"{'shape':<6} {'technique':<12} {'iters':>6} {'setup_ms':>10} "
-          f"{'solve_ms':>10} {'total_ms':>10} converged")
+          f"{'solve_ms':>10} {'total_ms':>10} converged x_rel_err")
     for row in run.rows:
         print(f"{row['shape']:<6} {row['technique']:<12} "
               f"{row['iterations']:>6} {row['setup_s'] * 1e3:>10.3f} "
               f"{row['solve_s'] * 1e3:>10.3f} {row['total_s'] * 1e3:>10.3f} "
-              f"{row['converged']}")
+              f"{row['converged']} {row['x_rel_err']}")
+    for row in run.seq_rows:
+        print(f"{row['shape']:<6} {row['technique']:<12} k {row['k_solves']}"
+              f" iterations_mean {row['iterations_mean']} total_ms "
+              f"{row['total_s'] * 1e3:.3f} converged {row['converged']}")
+    print("JSON:" + json.dumps(run.details))
 
 
 if __name__ == "__main__":

@@ -11,9 +11,12 @@
 // differed by ~1e-5 absolute on the multigrid coarse operators, whose
 // rows cancel terms of ~1e2 down to results near 0.
 //
-// Layout: vals (n_diag, n_pad) row-major, x (n_pad,), y (n_pad,), float32,
-// contiguous.  The offsets (at most 32) reach the kernel by value in a
-// parameter struct: no device copy per call.
+// Layout: vals (batch, n_diag, n_pad) row-major, x (batch, n_pad), y
+// (batch, n_pad), float32, contiguous; batch 1 is the plain (n_diag, n_pad)
+// operator.  A batch is S operators of one band layout, one per sample
+// (the structured trainer's), all in one launch: blockIdx.y is the sample.
+// The offsets (at most 32) reach the kernel by value in a parameter
+// struct: no device copy per call.
 //
 // What bounds it on an H100: per row it reads n_diag values and n_diag
 // entries of x and writes one y, 2 * n_diag flops for about
@@ -47,6 +50,10 @@ template <int ND>
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_kernel(const float* __restrict__ vals, const float* __restrict__ x,
                 float* __restrict__ y, const Offsets offs, int n_pad) {
+  const long long sample = blockIdx.y;
+  vals += sample * ND * static_cast<long long>(n_pad);
+  x += sample * n_pad;
+  y += sample * n_pad;
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_pad;
        i += stride) {
@@ -68,26 +75,29 @@ dia_spmv_kernel(const float* __restrict__ vals, const float* __restrict__ x,
 
 template <int ND>
 cudaError_t launch(const float* vals, const float* x, float* y,
-                   const Offsets& offs, int n_pad, cudaStream_t stream) {
+                   const Offsets& offs, int n_pad, int batch,
+                   cudaStream_t stream) {
   const long long blocks_needed =
       (static_cast<long long>(n_pad) + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(
       blocks_needed < (1 << 20) ? blocks_needed : (1 << 20));
-  dia_spmv_kernel<ND><<<blocks, kThreads, 0, stream>>>(vals, x, y, offs,
-                                                       n_pad);
+  const dim3 grid(blocks, batch);
+  dia_spmv_kernel<ND><<<grid, kThreads, 0, stream>>>(vals, x, y, offs,
+                                                     n_pad);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// y = A x for the DIA matrix (vals, offsets_host[0..n_diag)) on `stream`,
-// 1 <= n_diag <= 32, n_pad >= 1.  Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for arguments it does
-// not take.
+// y[s] = A[s] x[s] for the `batch` DIA matrices (vals,
+// offsets_host[0..n_diag)) on `stream`, 1 <= n_diag <= 32, n_pad >= 1,
+// 1 <= batch <= 65535.  Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int dp_dia_spmv_f32(const void* vals, const void* x, void* y,
                                const int* offsets_host, int n_diag,
-                               int n_pad, void* stream) {
-  if (n_diag < 1 || n_diag > kMaxDiags || n_pad < 1) {
+                               int n_pad, int batch, void* stream) {
+  if (n_diag < 1 || n_diag > kMaxDiags || n_pad < 1 || batch < 1 ||
+      batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Offsets offs = {};
@@ -99,7 +109,7 @@ extern "C" int dp_dia_spmv_f32(const void* vals, const void* x, void* y,
   switch (n_diag) {
 #define DP_DIA_CASE(ND) \
   case ND:              \
-    return static_cast<int>(launch<ND>(v, xin, out, offs, n_pad, st));
+    return static_cast<int>(launch<ND>(v, xin, out, offs, n_pad, batch, st));
     DP_DIA_CASE(1) DP_DIA_CASE(2) DP_DIA_CASE(3) DP_DIA_CASE(4)
     DP_DIA_CASE(5) DP_DIA_CASE(6) DP_DIA_CASE(7) DP_DIA_CASE(8)
     DP_DIA_CASE(9) DP_DIA_CASE(10) DP_DIA_CASE(11) DP_DIA_CASE(12)

@@ -1,19 +1,23 @@
 """Variable-coefficient Poisson operators on uniform grids, DIA-native.
 
-Numpy copy of ``deeppreconditioning_tpu/data/poisson.py::poisson_coeff_dia``
-(the reference cannot be imported without jax): -div(kappa grad u) with
-cell-wise lognormal kappa, harmonic-mean face coefficients and Dirichlet
-ghosts of the cell's own coefficient, assembled in float64 on the host
-into the DIA layout of ``sparse/dia.py``.
+Numpy copy of ``deeppreconditioning_tpu/data/poisson.py`` (the reference
+cannot be imported without jax): ``poisson_coeff_dia``, -div(kappa grad u)
+with cell-wise lognormal kappa, harmonic-mean face coefficients and
+Dirichlet ghosts of the cell's own coefficient, assembled in float64 on
+the host into the DIA layout of ``sparse/dia.py``; ``poisson_rhs_sequence``
+(the multi-RHS protocol's drifting known solutions) and ``poisson_family``
+(seeded operators with known-solution right-hand sides).  Their operator
+products run through ``ops.dia_spmv.dia_matvec`` on the operator's device.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from deeppreconditioning_tpu_torch.ops.dia_spmv import dia_matvec
 from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix, pad_rows
 
 
@@ -69,3 +73,55 @@ def poisson_coeff_dia(
         vals=torch.tensor(vals, dtype=dtype, device=device),
         offsets=tuple(offsets), n=n,
     )
+
+
+def _product(a: DIAMatrix, x: np.ndarray) -> np.ndarray:
+    """A x on the operator's device and in its dtype, back on the host."""
+    xt = torch.as_tensor(x, device=a.vals.device).to(a.vals.dtype)
+    with torch.no_grad():
+        return dia_matvec(a, xt).cpu().numpy()
+
+
+def poisson_rhs_sequence(
+    a: DIAMatrix,
+    k: int,
+    rng: Optional[np.random.Generator] = None,
+    step: float = 0.1,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Evolving-rhs sequence over one operator (the multi-RHS protocol):
+    x*_0 standard normal on the n rows (float32), x*_{t+1} = x*_t + step *
+    noise, b_t = A x*_t.  Returns (b_seq (k, n_pad), x_seq (k, n_pad))."""
+    rng = rng or np.random.default_rng(0)
+    n, n_pad = a.n, a.n_pad
+    x = np.zeros(n_pad, np.float32)
+    x[:n] = rng.standard_normal(n)
+    xs, bs = [], []
+    for _ in range(k):
+        xs.append(x.copy())
+        bs.append(_product(a, x))
+        nxt = x.copy()
+        nxt[:n] = x[:n] + step * rng.standard_normal(n).astype(np.float32)
+        x = nxt
+    return np.stack(bs), np.stack(xs)
+
+
+def poisson_family(
+    count: int,
+    shape: Sequence[int],
+    seed: int = 0,
+    sigma: float = 1.0,
+    dtype=torch.float32,
+    device=None,
+) -> Tuple[list, list]:
+    """A seeded family of coefficient-field operators and right-hand
+    sides b = A x* (x* standard normal on the n rows: known solution)."""
+    rng = np.random.default_rng(seed)
+    mats, rhss = [], []
+    for _ in range(count):
+        a = poisson_coeff_dia(shape, rng=rng, sigma=sigma, dtype=dtype,
+                              device=device)
+        x_star = rng.standard_normal(a.n_pad)
+        x_star[a.n:] = 0.0
+        mats.append(a)
+        rhss.append(_product(a, x_star))
+    return mats, rhss

@@ -16,6 +16,16 @@ offsets (the tril of the stencil-graph power), so
 ``models/neural_fsai.NeuralFSAI``) on offset-band columns, and
 ``poly_safeguard`` clamps a learned polynomial wrap whose roots fall
 inside B's spectrum back to q = I.
+
+The setup also takes S operators of one grid at once (the structured
+trainer's samples, the reference's ``jax.vmap``): a ``DIAMatrix`` whose
+values are (S, n_diag, n_pad) gives bands (S, w, n_pad), with every
+sample's local systems in one B1 launch per chunk of columns and the
+refinement MLP over all S * n_pad columns.  ``offset_upper_matvec`` /
+``offset_lower_matvec`` and ``make_structured_poly_apply`` are the
+reference's offset-form apply (plain PyTorch, as it is plain XLA there),
+the form the trainer differentiates; B1 sits before the parameters and
+runs without a gradient, as in the reference.
 """
 
 from __future__ import annotations
@@ -132,7 +142,7 @@ def dia_sorted_by_offset(a: DIAMatrix) -> DIAMatrix:
     if list(order) == list(range(len(a.offsets))):
         return a
     return DIAMatrix(
-        vals=a.vals[torch.as_tensor(order, device=a.vals.device)],
+        vals=a.vals[..., torch.as_tensor(order, device=a.vals.device), :],
         offsets=tuple(a.offsets[i] for i in order),
         n=a.n,
     )
@@ -171,21 +181,24 @@ def slot_valid(plan: StructuredFSAIPlan, n_pad: int, device=None,
 
 
 def _band_reads(a_scaled: DIAMatrix, plan: StructuredFSAIPlan):
-    """The bands zero-extended past n_pad, flattened, with one extra zero
-    band for the slot pairs the operator does not couple: a read of band
-    d at row i is ``flat[d * length + i]``; (flat, length, zero band)."""
+    """The bands zero-extended past n_pad, with one extra zero band for
+    the slot pairs the operator does not couple, as (S, bands * length)
+    rows (S = 1 unbatched): a read of band d at row i of sample s is
+    ``flat[s, d * length + i]``; (flat, length, zero band)."""
     halo = max(plan.offsets[-1], a_scaled.halo)
     vals = F.pad(a_scaled.vals, (0, 2 * halo))
-    vals = torch.cat([vals, torch.zeros_like(vals[:1])])
-    return vals.reshape(-1), vals.shape[1], vals.shape[0] - 1
+    vals = torch.cat([vals, torch.zeros_like(vals[..., :1, :])], dim=-2)
+    bands, length = vals.shape[-2:]
+    return vals.reshape(-1, bands * length), length, bands - 1
 
 
 def _local_systems(reads, plan: StructuredFSAIPlan, valid: torch.Tensor,
                    lo: int, count: int):
-    """The local systems of columns lo..lo+count-1 from ``_band_reads``:
-    ``sub`` (T, w, w) with sub[t, p, q] = A~[j + o_p, j + o_q] on live
-    slot pairs and the identity on dead slots, and the unit right-hand
-    side ``e`` (T, w) at slot 0.  One gather for the whole chunk."""
+    """The local systems of columns lo..lo+count-1 of every sample from
+    ``_band_reads``: ``sub`` (S * T, w, w), sample-major, with
+    sub[t, p, q] = A~[j + o_p, j + o_q] on live slot pairs and the
+    identity on dead slots, and the unit right-hand side ``e`` (S * T, w)
+    at slot 0.  One gather for the whole chunk."""
     flat, length, zero_band = reads
     w = plan.width
     dev = flat.device
@@ -194,10 +207,10 @@ def _local_systems(reads, plan: StructuredFSAIPlan, valid: torch.Tensor,
     rows = torch.arange(lo, lo + count, device=dev)
     idx = torch.as_tensor(base, device=dev)[None] + rows[:, None, None]
     vt = valid[lo:lo + count]  # (T, w)
-    sub = flat[idx] * vt[:, :, None] * vt[:, None, :]
+    sub = flat[:, idx] * vt[:, :, None] * vt[:, None, :]  # (S, T, w, w)
     eye = torch.eye(w, dtype=sub.dtype, device=dev)
-    sub = sub + eye * (1.0 - vt)[:, None, :]
-    e = torch.zeros((count, w), dtype=sub.dtype, device=dev)
+    sub = (sub + eye * (1.0 - vt)[:, None, :]).reshape(-1, w, w)
+    e = torch.zeros((sub.shape[0], w), dtype=sub.dtype, device=dev)
     e[:, 0] = 1.0
     return sub, e
 
@@ -206,9 +219,10 @@ def structured_fsai_columns(a_scaled: DIAMatrix, plan: StructuredFSAIPlan,
                             chunk: int = CHUNK) -> torch.Tensor:
     """FSAI column values on the scaled operator, offset-band layout.
 
-    Returns bands (w, n_pad): bands[k, j] = C~[j + offsets[k], j], from
-    the normal-equations local solve with a unit target at slot 0 (one B1
-    launch per chunk of columns) and the 1/sqrt(y_0) normalisation.
+    Returns bands (w, n_pad), or (S, w, n_pad) for S operators:
+    bands[..., k, j] = C~[j + offsets[k], j], from the normal-equations
+    local solve with a unit target at slot 0 (one B1 launch per chunk of
+    columns, every sample's in it) and the 1/sqrt(y_0) normalisation.
     """
     n_pad = a_scaled.n_pad
     dtype = a_scaled.vals.dtype
@@ -216,20 +230,22 @@ def structured_fsai_columns(a_scaled: DIAMatrix, plan: StructuredFSAIPlan,
     if n_pad % chunk != 0:
         chunk = n_pad
     reads = _band_reads(a_scaled, plan)
+    samples = reads[0].shape[0]
     outs = []
     for lo in range(0, n_pad, chunk):
         sub, e = _local_systems(reads, plan, valid, lo, chunk)
-        y = masked_gauss_jordan(sub, e)  # (T, w)
+        y = masked_gauss_jordan(sub, e)  # (S * T, w)
         del sub, e
         c = y * torch.rsqrt(torch.clamp(y[:, 0], min=1e-30))[:, None]
-        outs.append(c * valid[lo:lo + chunk])
-    return torch.cat(outs).T.contiguous()
+        outs.append(c.reshape(samples, chunk, -1) * valid[lo:lo + chunk])
+    bands = torch.cat(outs, dim=1).transpose(1, 2).contiguous()
+    return bands.reshape(a_scaled.vals.shape[:-2] + bands.shape[1:])
 
 
 def structured_a_col(a_scaled: DIAMatrix,
                      plan: StructuredFSAIPlan) -> torch.Tensor:
-    """a_col[j, k] = A~[j + o_k, j] masked: the refinement MLP's local
-    structure feature, (n_pad, w)."""
+    """a_col[..., j, k] = A~[j + o_k, j] masked: the refinement MLP's
+    local structure feature, (n_pad, w) or (S, n_pad, w)."""
     n_pad = a_scaled.n_pad
     valid = slot_valid(plan, n_pad, a_scaled.vals.device,
                        a_scaled.vals.dtype)
@@ -238,8 +254,9 @@ def structured_a_col(a_scaled: DIAMatrix,
     for k, off in enumerate(plan.offsets):
         d = int(plan.delta_idx[k, 0])  # A[j + o_k, j]
         start = (zero_band if d < 0 else d) * length + off
-        cols.append(flat[start:start + n_pad] * valid[:, k] * valid[:, 0])
-    return torch.stack(cols, dim=1)
+        cols.append(flat[:, start:start + n_pad] * valid[:, k] * valid[:, 0])
+    a_col = torch.stack(cols, dim=-1)
+    return a_col.reshape(a_scaled.vals.shape[:-2] + a_col.shape[1:])
 
 
 def structured_refine(model, c_bands: torch.Tensor, a_col: torch.Tensor,
@@ -250,17 +267,20 @@ def structured_refine(model, c_bands: torch.Tensor, a_col: torch.Tensor,
     the features ``[c / max(|c_0|, 1e-20), a_col, pos1h, pad]`` with
     ``pos1h`` the one-hot of slot 0 and ``pad = 1 - valid``; the refined
     column is ``(c * exp(alpha) + (1 - pos1h) * beta * c_0) * valid`` and
-    q = e0 + q_coeffs.  The whole (n_pad, 4w) feature block goes through
-    at once (features and activations ~1 GB at 128^3, w = 13, float32).
-    Returns (refined bands (w, n_pad), q_coeffs).
+    q = e0 + q_coeffs.  The whole (..., n_pad, 4w) feature block goes
+    through at once (features and activations ~1 GB at 128^3, w = 13,
+    float32), every sample's columns in one pass; the gradient flows from
+    the refined bands and q into the layers.
+    Returns (refined bands (..., w, n_pad), q_coeffs).
     """
-    c = c_bands.T  # (n_pad, w)
+    c = c_bands.transpose(-1, -2)  # (..., n_pad, w)
     pad = 1.0 - valid
-    pos1h = torch.zeros_like(c[:1])
-    pos1h[0, 0] = 1.0
-    c_diag = c[:, 0:1]
+    pos1h = torch.zeros_like(valid[0])
+    pos1h[0] = 1.0
+    c_diag = c[..., 0:1]
     denom = torch.clamp(c_diag.abs(), min=1e-20)
-    feats = torch.cat([c / denom, a_col, pos1h.expand_as(c), pad], dim=1)
+    feats = torch.cat([c / denom, a_col.expand_as(c), pos1h.expand_as(c),
+                       pad.expand_as(c)], dim=-1)
     h = model.act(model.dense0(feats))
     h = model.act(model.dense1(h))
     alpha = model.alpha(h)
@@ -269,18 +289,45 @@ def structured_refine(model, c_bands: torch.Tensor, a_col: torch.Tensor,
     dq = model.q_coeffs
     q0 = torch.zeros_like(dq)
     q0[0] = 1.0
-    return refined.T.contiguous(), q0 + dq
+    return refined.transpose(-1, -2).contiguous(), q0 + dq
 
 
 def fold_scaling(bands: torch.Tensor, d_isqrt: torch.Tensor,
                  offsets: Tuple[int, ...]) -> torch.Tensor:
     """C_eff = D^-1/2 C~ in offset-band layout:
-    bands_eff[k, j] = d_isqrt[j + o_k] * bands[k, j]."""
-    n_pad = bands.shape[1]
+    bands_eff[..., k, j] = d_isqrt[..., j + o_k] * bands[..., k, j]."""
+    n_pad = bands.shape[-1]
     d_ext = F.pad(d_isqrt, (0, max(offsets)))
     return torch.stack([
-        bands[k] * d_ext[off:off + n_pad] for k, off in enumerate(offsets)
-    ])
+        bands[..., k, :] * d_ext[..., off:off + n_pad]
+        for k, off in enumerate(offsets)
+    ], dim=-2)
+
+
+def offset_upper_matvec(bands: torch.Tensor, r: torch.Tensor,
+                        offsets: Tuple[int, ...]) -> torch.Tensor:
+    """t = C^T r: t[j] = sum_k bands[k, j] r[j + o_k], accumulated in
+    slot order (a leading batch axis on both is kept)."""
+    n_pad = r.shape[-1]
+    r_ext = F.pad(r, (0, max(offsets)))
+    t = torch.zeros_like(r)
+    for k, off in enumerate(offsets):
+        t = t + bands[..., k, :] * r_ext[..., off:off + n_pad]
+    return t
+
+
+def offset_lower_matvec(bands: torch.Tensor, t: torch.Tensor,
+                        offsets: Tuple[int, ...]) -> torch.Tensor:
+    """z = C t: z[i] = sum_k bands[k, i - o_k] t[i - o_k], each band's
+    product padded into place and the terms summed in slot order (a
+    leading batch axis on both is kept)."""
+    n_pad = t.shape[-1]
+    z = None
+    for k, off in enumerate(offsets):
+        term = F.pad(bands[..., k, :n_pad - off] * t[..., :n_pad - off],
+                     (off, 0))
+        z = term if z is None else z + term
+    return z
 
 
 def bands_to_dia(bands: torch.Tensor, offsets: Tuple[int, ...],
@@ -291,11 +338,12 @@ def bands_to_dia(bands: torch.Tensor, offsets: Tuple[int, ...],
     are; C t re-bases each band once (rb[k, i] = bands[k, i - o_k]) and is
     a DIA matvec with the negated offsets.
     """
-    n_pad = bands.shape[1]
-    rows = [bands[k] if off == 0 else F.pad(bands[k, :n_pad - off], (off, 0))
+    n_pad = bands.shape[-1]
+    rows = [bands[..., k, :] if off == 0
+            else F.pad(bands[..., k, :n_pad - off], (off, 0))
             for k, off in enumerate(offsets)]
     c_up = DIAMatrix(vals=bands.contiguous(), offsets=tuple(offsets), n=n)
-    c_low = DIAMatrix(vals=torch.stack(rows),
+    c_low = DIAMatrix(vals=torch.stack(rows, dim=-2),
                       offsets=tuple(-o for o in offsets), n=n)
     return c_up, c_low
 
@@ -318,6 +366,35 @@ def make_structured_poly_apply_dia(degree: int):
             return u
 
         return dia_matvec(c_low, q_(q_(dia_matvec(c_up, r))))
+
+    return apply_fn
+
+
+def make_structured_poly_apply(offsets: Tuple[int, ...], degree: int):
+    """z = C q(B) q(B)^T C^T r in offset form, B = C^T A C: the factor
+    halves are ``offset_upper_matvec`` / ``offset_lower_matvec`` on the
+    bands, the operator product is ``dia_matvec`` (kernel B2 on the card,
+    with its backward where r needs a gradient); m_data = (bands_eff,
+    q_coeffs, a_raw) or (bands_eff, q_coeffs, a_raw, a_raw^T) with A^T for
+    that backward.  Bands and r may carry a leading batch axis."""
+
+    def apply_fn(m_data, r: torch.Tensor) -> torch.Tensor:
+        bands, q_coeffs, a_raw, *a_t = m_data
+        a_t = a_t[0] if a_t else None
+
+        def b_(t):
+            return offset_upper_matvec(
+                bands, dia_matvec(a_raw, offset_lower_matvec(
+                    bands, t, offsets), a_t), offsets)
+
+        def q_(t):
+            u = q_coeffs[degree] * t
+            for i in range(degree - 1, -1, -1):
+                u = b_(u) + q_coeffs[i] * t
+            return u
+
+        return offset_lower_matvec(
+            bands, q_(q_(offset_upper_matvec(bands, r, offsets))), offsets)
 
     return apply_fn
 
@@ -361,27 +438,37 @@ def poly_safeguard(bands: torch.Tensor, q_coeffs: torch.Tensor,
 def jacobi_scale_dia(a: DIAMatrix) -> Tuple[DIAMatrix, torch.Tensor]:
     """(A~, d_sqrt): symmetric Jacobi scaling in DIA form,
     A~[i, i+off] = A[i, i+off] / (d_sqrt[i] d_sqrt[i+off])."""
-    d = a.vals[a.offsets.index(0)]
+    d = a.vals[..., a.offsets.index(0), :]
     d_safe = torch.where(d == 0, torch.ones_like(d), d)
     d_isqrt = torch.where(d == 0, torch.zeros_like(d),
                           1.0 / torch.sqrt(d_safe))
     n_pad, halo = a.n_pad, a.halo
     d_ext = F.pad(d_isqrt, (halo, halo))
-    rows = [a.vals[k] * d_isqrt * d_ext[halo + off:halo + off + n_pad]
+    rows = [a.vals[..., k, :] * d_isqrt
+            * d_ext[..., halo + off:halo + off + n_pad]
             for k, off in enumerate(a.offsets)]
-    return (DIAMatrix(vals=torch.stack(rows), offsets=a.offsets, n=a.n),
+    return (DIAMatrix(vals=torch.stack(rows, dim=-2), offsets=a.offsets,
+                      n=a.n),
             torch.sqrt(d_safe) * (d != 0))
 
 
-def structured_setup(a_raw: DIAMatrix, plan: StructuredFSAIPlan, model=None):
+def structured_setup(a_raw: DIAMatrix, plan: StructuredFSAIPlan, model=None,
+                     safeguard: bool = True):
     """Deployed setup: scale -> local solves -> (learned refinement +
     spectral safeguard) -> scaling fold.  Returns (bands_eff (w, n_pad),
     q_coeffs) for ``bands_to_dia`` and ``make_structured_poly_apply_dia``
     with the RAW operator.  ``model=None`` gives classical FSAI (q = 1);
-    a degree-0 model skips the safeguard (q has one coefficient)."""
+    a degree-0 model skips the safeguard (q has one coefficient), and so
+    does ``safeguard=False`` (the trainer's: the clamp would freeze q).
+    Batched values (S, n_diag, n_pad) give bands (S, w, n_pad) and one q;
+    they take no safeguard, which clamps per operator."""
     a_sorted = dia_sorted_by_offset(a_raw)
     a_scaled, d_sqrt = jacobi_scale_dia(a_sorted)
-    c_bands = structured_fsai_columns(a_scaled, plan)
+    # the parameters enter after the local solves: without a gradient
+    # for the operator they run under no_grad (B1 has no backward)
+    with torch.set_grad_enabled(torch.is_grad_enabled()
+                                and a_scaled.vals.requires_grad):
+        c_bands = structured_fsai_columns(a_scaled, plan)
     if model is None:
         q = torch.ones(1, dtype=c_bands.dtype, device=c_bands.device)
     else:
@@ -389,7 +476,10 @@ def structured_setup(a_raw: DIAMatrix, plan: StructuredFSAIPlan, model=None):
                            c_bands.dtype)
         a_col = structured_a_col(a_scaled, plan)
         c_bands, q = structured_refine(model, c_bands, a_col, valid)
-        if q.shape[0] > 1:
+        if safeguard and q.shape[0] > 1:
+            if c_bands.dim() != 2:
+                raise ValueError("the safeguard clamps one operator's q: "
+                                 "batched setups take safeguard=False")
             q, _, _ = poly_safeguard(c_bands, q, a_scaled, plan.offsets)
     d_isqrt = torch.where(d_sqrt == 0, torch.zeros_like(d_sqrt),
                           1.0 / d_sqrt)

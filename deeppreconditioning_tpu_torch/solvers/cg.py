@@ -21,10 +21,17 @@ counts equal the chunked solver's whenever ``trips`` covers the solve.
 per-case dot, a case freezes once it converges (or at ``max_iter``), and
 the chunked form reads on the host, once per chunk, whether any case is
 still running.  The matvec and the preconditioner take (B, n).
+
+``pcg_sequence_fixed_trips`` solves k right-hand sides of one operator in
+order, each a cold-start fixed-trip solve (the multi-RHS protocol);
+``conjugate_gradient`` is PCG with the identity; ``pcg_with_history``
+runs ``max_iter`` masked iterations and returns the residual curve;
+``benchmark_cg`` is the reference's scipy wrapper (host).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -127,6 +134,100 @@ def pcg_fixed_trips(
         s = _masked_iteration(matvec, a_data, apply_m, m_data, s, bb, rtol,
                               max_iter)
     return CGResult(x=s.x, iterations=s.k, residual=torch.dot(s.r, s.r) / bb)
+
+
+def pcg_sequence_fixed_trips(
+    matvec: Callable[[Any, torch.Tensor], torch.Tensor],
+    a_data: Any,
+    b_seq: torch.Tensor,
+    apply_m: Callable[[Any, torch.Tensor], torch.Tensor] = identity_apply,
+    m_data: Any = None,
+    rtol: float = 1e-8,
+    max_iter: int = 1024,
+    trips: int = 8,
+):
+    """k solves of one operator, in order, each ``pcg_fixed_trips`` from
+    x0 = 0 (the reference's cold start), with no host read.  Returns
+    (x_seq (k, n), iterations (k,) int32, residuals (k,))."""
+    results = [pcg_fixed_trips(matvec, a_data, b, apply_m, m_data, rtol=rtol,
+                               max_iter=max_iter, trips=trips)
+               for b in b_seq]
+    return (torch.stack([r.x for r in results]),
+            torch.stack([r.iterations for r in results]),
+            torch.stack([r.residual for r in results]))
+
+
+def conjugate_gradient(
+    matvec: Callable[[Any, torch.Tensor], torch.Tensor],
+    a_data: Any,
+    b: torch.Tensor,
+    rtol: float = 1e-8,
+    max_iter: int = 1024,
+) -> CGResult:
+    """Plain CG: PCG with the identity preconditioner."""
+    return preconditioned_conjugate_gradient(
+        matvec, a_data, b, identity_apply, None, rtol=rtol, max_iter=max_iter
+    )
+
+
+def benchmark_cg(matrix, right_hand_side, preconditioner=None):
+    """The reference's scipy CG benchmark (``solvers/cg.py::benchmark_cg``):
+    scipy defaults, maxiter 512, iterations counted by callback.  Returns
+    (duration_seconds, iterations, info)."""
+    from scipy.sparse.linalg import cg as scipy_cg
+
+    iterations = 0
+
+    def callback(_):
+        nonlocal iterations
+        iterations += 1
+
+    start = time.perf_counter()
+    _, info = scipy_cg(matrix, right_hand_side, maxiter=512, M=preconditioner,
+                       callback=callback)
+    return time.perf_counter() - start, iterations, info
+
+
+def pcg_with_history(
+    matvec: Callable[[Any, torch.Tensor], torch.Tensor],
+    a_data: Any,
+    b: torch.Tensor,
+    apply_m: Callable[[Any, torch.Tensor], torch.Tensor] = identity_apply,
+    m_data: Any = None,
+    rtol: float = 1e-8,
+    max_iter: int = 1024,
+):
+    """PCG for exactly ``max_iter`` masked iterations returning the
+    squared relative residual after each (history[i] after i + 1
+    iterations, held once converged), as the reference's scan.  Returns
+    (CGResult, history (max_iter,))."""
+    x = torch.zeros_like(b)
+    r = b - matvec(a_data, x)
+    z = apply_m(m_data, r)
+    p = z
+    bb = torch.dot(b, b)
+    bb = torch.where(bb == 0, torch.ones_like(bb), bb)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    done = torch.dot(r, r) / bb < rtol
+    history = []
+    for _ in range(max_iter):
+        ap = matvec(a_data, p)
+        rz = torch.dot(r, z)
+        denom = torch.dot(ap, p)
+        alpha = torch.where(done, zero, rz / denom)
+        x = x + alpha * p
+        r_new = torch.where(done, r, r - alpha * ap)
+        z_new = torch.where(done, z, apply_m(m_data, r_new))
+        beta = torch.where(done, zero, torch.dot(r_new, z_new) / rz)
+        p = torch.where(done, p, z_new + beta * p)
+        res = torch.dot(r_new, r_new) / bb
+        k = torch.where(done, k, k + 1)
+        done = done | (res < rtol)
+        r, z = r_new, z_new
+        history.append(res)
+    return (CGResult(x=x, iterations=k, residual=torch.dot(r, r) / bb),
+            torch.stack(history))
 
 
 def _dots(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

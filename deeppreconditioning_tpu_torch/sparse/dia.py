@@ -7,7 +7,9 @@ keeps one value array per diagonal offset, and
 
 reads x at static shifts, with no gather.  ``DIAMatrix.matvec`` is the
 plain PyTorch version of kernel B2 (``ops/dia_spmv.py``), which every
-caller reaches through ``ops.dia_spmv.dia_matvec``.
+caller reaches through ``ops.dia_spmv.dia_matvec``.  The values may carry
+a leading batch axis, (S, n_diag, n_pad) with x (S, n_pad): S operators
+of one band layout (the structured trainer's samples).
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ def pad_rows(n: int, mult: int = 1024) -> int:
 class DIAMatrix:
     """Square banded matrix as per-offset diagonal value arrays.
 
-    vals: (n_diag, n_pad); vals[d, i] multiplies x[i + offsets[d]] and is
-        zero where i + offset leaves the matrix.
+    vals: (n_diag, n_pad), or (S, n_diag, n_pad) for S operators;
+        vals[..., d, i] multiplies x[..., i + offsets[d]] and is zero
+        where i + offset leaves the matrix.
     offsets: static tuple of diagonal offsets (may be negative).
     n: true dimension (rows n..n_pad-1 are zero).
     """
@@ -44,7 +47,7 @@ class DIAMatrix:
 
     @property
     def n_pad(self) -> int:
-        return self.vals.shape[1]
+        return self.vals.shape[-1]
 
     @property
     def halo(self) -> int:
@@ -73,14 +76,33 @@ class DIAMatrix:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x: shifted reads of a zero-extended x, accumulated in
-        band order (the plain version of kernel B2)."""
+        band order (the plain version of kernel B2); batched values take a
+        batched x."""
         _backend.count_plain("dia_spmv", x)
         h = self.halo
         x_ext = F.pad(x, (h, h))
         y = torch.zeros_like(x)
         for d, off in enumerate(self.offsets):
-            y = y + self.vals[d] * x_ext[h + off:h + off + self.n_pad]
+            y = y + self.vals[..., d, :] * x_ext[..., h + off:h + off
+                                                 + self.n_pad]
         return y
+
+    def transpose(self) -> "DIAMatrix":
+        """A^T of the n_pad x n_pad operator ``matvec`` applies, in DIA
+        form: offsets negated, band d re-based as
+        vals_t[..., d, i] = vals[..., d, i - off_d] (zero where
+        i - off_d leaves [0, n_pad)), so entries that ``matvec`` never
+        reads stay out."""
+        n_pad = self.n_pad
+        rows = []
+        for d, off in enumerate(self.offsets):
+            band = self.vals[..., d, :]
+            if off >= 0:
+                rows.append(F.pad(band[..., :n_pad - off], (off, 0)))
+            else:
+                rows.append(F.pad(band[..., -off:], (0, -off)))
+        return DIAMatrix(vals=torch.stack(rows, dim=-2),
+                         offsets=tuple(-o for o in self.offsets), n=self.n)
 
     def to_dense(self) -> torch.Tensor:
         n = self.n

@@ -157,6 +157,38 @@ def test_cuda_kernel_matches_plain(operator, cuda_device):
     assert bool(((got - ref).abs() <= 1e-6 + 1e-5 * ref.abs()).all())
 
 
+@pytest.mark.cuda
+def test_cuda_batched_kernel_and_backward_match_plain(cuda_device):
+    """Batched B2 (32 samples in one launch) and its autograd backward
+    (B2 on A^T) against the plain product and its autograd on the card;
+    values that need a gradient are refused."""
+    rng = np.random.default_rng(8)
+    a = poisson_coeff_dia((12, 12, 12), rng=rng, device=cuda_device)
+    vals = torch.stack([a.vals * float(s) for s in rng.uniform(0.5, 2, 32)])
+    vals[:, 1] += 0.25  # unsymmetric
+    a = DIAMatrix(vals=vals, offsets=a.offsets, n=a.n)
+    x = torch.tensor(rng.standard_normal((32, a.n_pad)), dtype=torch.float32,
+                     device=cuda_device)
+    g = torch.randn_like(x)
+    before = _backend.launch_counts()["dia_spmv"]
+    got = dia_matvec(a, x)
+    torch.cuda.synchronize()
+    assert _backend.launch_counts()["dia_spmv"] == before + 1
+    assert torch.equal(got, a.matvec(x))
+    xr = x.clone().requires_grad_(True)
+    dia_matvec(a, xr).backward(g)
+    assert _backend.launch_counts()["dia_spmv"] == before + 3
+    xp = x.clone().requires_grad_(True)
+    a.matvec(xp).backward(g)
+    # A^T's bands sum in another order than autograd's pad-backward adds
+    scale = float(xp.grad.abs().max())
+    assert float((xr.grad - xp.grad).abs().max()) <= 1e-5 * scale
+    needs = DIAMatrix(vals=vals.clone().requires_grad_(True),
+                      offsets=a.offsets, n=a.n)
+    with pytest.raises(ValueError, match="gradient"):
+        dia_matvec(needs, x)
+
+
 def test_cuda_call_without_library_raises(monkeypatch):
     """A CUDA tensor goes to the kernel or raises: with the library
     unavailable the call fails and the plain version never runs."""

@@ -1,6 +1,7 @@
 """The PyTorch port imports no JAX, Flax, msgpack or YAML: every module of the
 package (and ``chip_smoke.py``) imports in a subprocess where those
-modules cannot be imported, the conv train stage's names included."""
+modules cannot be imported, the conv train stage's and the structured
+trainer's and scaling protocol's names included."""
 
 import subprocess
 import sys
@@ -25,7 +26,9 @@ for name in ("ops.ic0", "ops.trisolve", "ops.amg", "ops.banded_factor",
              "bench.irregular", "metrics", "sparse.coo", "train.trainer",
              "train.__main__", "utils.logging", "ops.sparse_conv",
              "ops.factor_apply", "models.precond_net", "models.sparse_unet",
-             "test", "data.datasets", "train.checkpoint", "config"):
+             "test", "data.datasets", "train.checkpoint", "config",
+             "train.structured", "bench.large_solve", "ops.stencil",
+             "data.poisson", "solvers.cg"):
     assert pkg.__name__ + "." + name in sys.modules, name
 from deeppreconditioning_tpu_torch.data.datasets import (
     ConvPlans, RandomSPDDataSet, StAnDataSet, download_from_kaggle)
@@ -33,6 +36,22 @@ from deeppreconditioning_tpu_torch.models import (
     conv_params_from_jax, conv_params_to_jax, init_params)
 from deeppreconditioning_tpu_torch.train.trainer import (
     conv_loss, train, train_step, validate, warmup_cosine_decay)
+from deeppreconditioning_tpu_torch.train.structured import (
+    batch_loss, make_data, run)
+from deeppreconditioning_tpu_torch.ops.dia_spmv import DIAMatvec
+from deeppreconditioning_tpu_torch.ops.structured_fsai import (
+    make_structured_poly_apply, offset_lower_matvec, offset_upper_matvec)
+from deeppreconditioning_tpu_torch.ops.stencil import (
+    StencilOperator3D, poisson2d_stencil_matvec, stencil_matvec_flat,
+    stencil_matvec_padded)
+from deeppreconditioning_tpu_torch.data.poisson import (
+    poisson_family, poisson_rhs_sequence)
+from deeppreconditioning_tpu_torch.solvers.cg import (
+    benchmark_cg, conjugate_gradient, pcg_sequence_fixed_trips,
+    pcg_with_history)
+from deeppreconditioning_tpu_torch.bench.large_solve import large_solve
+from deeppreconditioning_tpu_torch.bench.scaling import (
+    crossover_k, rhs_sequence, scaling_problem)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "flax", "yaml", "deeppreconditioning_tpu")
        and sys.modules[m] is not None]
