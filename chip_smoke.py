@@ -9,7 +9,7 @@ Phases (each raises on failure):
   2. build: compile and load the CUDA kernels from ``csrc/`` (nvcc, one
      process per source, in parallel); print each source's nvcc time and
      ptxas's registers, stack and spills per kernel instance, and fail on
-     any spill in B1's or B3's instances;
+     any spill in B1's, B2's or B3's instances;
   3. kernel B1 (batched Gauss–Jordan) against its plain PyTorch version
      at w in {4, 8, 13, 24, 31, 32, 41, 63} and N in {1024, 131072} and at
      the scaling path's launches (w 13 and 4, N = 262144), float32, within
@@ -19,8 +19,10 @@ Phases (each raises on failure):
      ``poisson_dia`` at 512^2, 128^3 and 256^3, on the 13-band halves
      (c_up, c_low) of a 128^3 structured FSAI factor and on the Galerkin
      coarse operators of the 128^3 scaling operator, float32, within
-     |kernel - plain| <= 1e-6 + 1e-5 |plain|; the SpMV section's cold and
-     resident GB/s and HBM share;
+     |kernel - plain| <= 1e-6 + 1e-5 |plain|, with a report of whether
+     each result is equal bit for bit (the design promises it) and of
+     each per-call time against the library call's, as a ratio; the SpMV
+     section's cold and resident GB/s and HBM share;
   3c. kernel B3 (BSR SpMV / SpMM) against its plain PyTorch version on the
      four BSR operators of the SpMV roofline at block size 128 (m = 1)
      and on the frame operator at m in {8, 128}, float32, within
@@ -312,7 +314,7 @@ PTXAS_FUNCTION = re.compile(
     r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) "
     r"bytes spill stores, (\d+) bytes spill loads\n[^\n]*?Used (\d+) "
     r"registers")
-NO_SPILL_SOURCES = ("gauss_jordan.cu", "bsr_spmm.cu")
+NO_SPILL_SOURCES = ("gauss_jordan.cu", "dia_spmv.cu", "bsr_spmm.cu")
 GJ_RTOL, GJ_ATOL = 1e-4, 1e-6
 M_RTOL = 1e-4  # card float32 setup vs CPU float64 setup, relative to max|M|
 # BENCH_r05 per-case mean iterations, measured on a TPU v5e: context only
@@ -470,6 +472,14 @@ def measure(label, kernel, plain, library, work, dev, card, *,
     return rec
 
 
+def print_against_library(label, rec):
+    """One line: the per-call time beside the library call's, and their
+    ratio (below 1: the kernel's call is the cheaper)."""
+    print(f"{label}: per call {rec['ms']:.4f} ms against the library's "
+          f"{rec['library_ms']:.4f} ms, ratio "
+          f"{rec['ms'] / rec['library_ms']:.3f}")
+
+
 def check_gauss_jordan(dev, card):
     """Phase 3: B1 against its plain version at every checked (w, N), and
     its times beside the bound and ``torch.linalg.solve_ex``."""
@@ -523,7 +533,7 @@ def check_dia_spmv(dev, card):
         a = galerkin_coarse_dia(a, shape)
         shape = tuple(s // 2 for s in shape)
         coarse.append((f"gmg_coarse_{shape[0]}^3", a))
-    max_err, times = 0.0, {}
+    max_err, times, equal = 0.0, {}, 0
     with torch.no_grad():
         for name, a in operators + coarse:
             x = torch.tensor(rng.standard_normal(a.n_pad, dtype=np.float32),
@@ -539,15 +549,20 @@ def check_dia_spmv(dev, card):
                     f"B2 disagrees with its plain version on {name}: max "
                     f"abs err {err}")
             max_err = max(max_err, err)
+            equal += int(torch.equal(got, ref))
             csr = dia_csr(a)
             times[name] = measure(
                 f"B2 {name:<20} n_pad {a.n_pad:>8d} bands "
                 f"{len(a.offsets):2d} (max abs err {err:.3e}, rtol {B2_RTOL},"
-                f" atol {B2_ATOL}; library CSR nnz {csr.values().numel()})",
+                f" atol {B2_ATOL}; bit-equal {torch.equal(got, ref)}; "
+                f"library CSR nnz {csr.values().numel()})",
                 lambda: dia_matvec(a, x), lambda: a.matvec(x),
                 lambda: csr @ x, dia_work(len(a.offsets), a.n_pad), dev,
                 card)
+            print_against_library(f"B2 {name}", times[name])
             del x, got, ref, diff, csr
+        print(f"B2 equal bit for bit to its plain version on {equal} of "
+              f"{len(operators + coarse)} operators")
         for row in spmv_section(dev, operators):
             print(f"SpMV {row['name']:<20} " + "; ".join(
                 f"{p} {row[p]['time_us']:.2f} us {row[p]['gnnz_per_s']:.2f}"
@@ -1678,11 +1693,14 @@ def check_structured_kernels(dev, card):
             flat = v.reshape(-1)
             records[("dia_spmv", label)] = measure(
                 f"B2 batched {label} ({samples} x {len(op.offsets)} bands x "
-                f"{a.n_pad}; max abs err {err:.3e}; library block-diagonal "
+                f"{a.n_pad}; max abs err {err:.3e}; bit-equal "
+                f"{torch.equal(got, ref)}; library block-diagonal "
                 f"CSR nnz {csr.values().numel()})",
                 lambda: dia_matvec(op, v), lambda: op.matvec(v),
                 lambda: csr @ flat, dia_work(len(op.offsets),
                                              samples * a.n_pad), dev, card)
+            print_against_library(f"B2 batched {label}",
+                                  records[("dia_spmv", label)])
             del csr
     xr = x.clone().requires_grad_(True)
     dia_matvec(a, xr, a_t).backward(g)
@@ -1720,7 +1738,7 @@ def run_large_solve(card):
 def build_report(build_s):
     """Phase 2's record: the build's wall time, each source's nvcc time,
     and ptxas's registers and spills per kernel instance; fails on any
-    spill in B1's or B3's instances."""
+    spill in B1's, B2's or B3's instances."""
     print(f"build: {build_s:.1f} s (0 if cached); nvcc per source "
           + ", ".join(f"{src} {s:.1f} s"
                       for src, s in sorted(_backend.build_seconds.items())))

@@ -162,12 +162,11 @@ def kernel_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.dp_gauss_jordan_f32.restype = ctypes.c_int
-    lib.dp_dia_spmv_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.dp_dia_spmv_f32.restype = ctypes.c_int
+    # vals, x, y, the launch plan's parameter block, the stream.  B2 runs
+    # once per product and the call only enqueues a launch, so it keeps
+    # the GIL (no release and re-acquire around it).
+    lib.dp_dia_spmv_f32 = ctypes.PYFUNCTYPE(
+        ctypes.c_int, *[ctypes.c_void_p] * 5)(("dp_dia_spmv_f32", lib))
     lib.dp_bsr_spmm_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

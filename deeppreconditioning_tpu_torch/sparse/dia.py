@@ -14,7 +14,7 @@ of one band layout (the structured trainer's samples).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
@@ -39,11 +39,16 @@ class DIAMatrix:
         where i + offset leaves the matrix.
     offsets: static tuple of diagonal offsets (may be negative).
     n: true dimension (rows n..n_pad-1 are zero).
+    launch_plan: kernel B2's launch plan (``ops.dia_spmv.launch_plan``),
+        built on the first CUDA product and kept while ``vals`` keeps its
+        address, shape, dtype and device.
     """
 
     vals: torch.Tensor
     offsets: Tuple[int, ...]
     n: int
+    launch_plan: object = field(default=None, init=False, repr=False,
+                                compare=False)
 
     @property
     def n_pad(self) -> int:
