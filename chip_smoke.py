@@ -10,6 +10,15 @@ Phases (each raises on failure):
      process per source, in parallel); print each source's nvcc time and
      ptxas's registers, stack and spills per kernel instance, and fail on
      any spill in B1's, B2's or B3's instances;
+  2b. the host runtime (``csrc/host_runtime.cpp``, g++ into
+     ``build/torch_host/``): it must build and load (there is no numpy
+     run in its place); print its build seconds; on the first flagship
+     case each entry point against the port's numpy version: ic0 within
+     HOST_IC0_RTOL, levels and conv_plan (PreconditionerNet's stride-1
+     layers) equal, ict(1, 0.1) a valid factor (lower triangular, finite,
+     positive diagonal), fvm_assemble on a 24 x 32 grid within
+     HOST_FVM_RTOL; ic0, levels and conv_plan timed natively and in numpy
+     on the host clock;
   3. kernel B1 (batched Gauss–Jordan) against its plain PyTorch version
      at w in {4, 8, 13, 24, 31, 32, 41, 63} and N in {1024, 131072} and at
      the scaling path's launches (w 13 and 4, N = 262144), float32, within
@@ -56,6 +65,15 @@ Phases (each raises on failure):
      ``tests/fixtures/torch_port/batched_iterations.json``; the first
      case's fsai and learned M on the card agree with the port's CPU
      float64 path to 1e-4 (relative to max |M|);
+  4k. incomplete_lu (ICT(1, 0.1) in the host runtime, two level-scheduled
+     solves) per case on the same split through the test-stage entry
+     point (``python -m deeppreconditioning_tpu_torch.test --techniques
+     incomplete_lu``'s ``run``, 5 kappa cases), against the JAX CPU f32
+     fixture (``ilu_iterations.json``, the reference's native ICT):
+     success as the fixture, per-case |delta| <= 2, the mean within 1%,
+     densities and kappas as the fixture's (float64 host work; kappa
+     within ILU_KAPPA_RTOL); the mean and kappa printed beside the TPU
+     table's 30.9 and 185.37 (``assets/results/table.csv``);
   4f. training, after the per-case path and on its generated cases,
      through the train entry point (``python -m
      deeppreconditioning_tpu_torch.train``'s ``run``): one flagship epoch
@@ -138,10 +156,14 @@ Phases (each raises on failure):
   4b. the structured-grid scaling path through its entry point
      (``python -m deeppreconditioning_tpu_torch.bench.scaling``'s
      ``run_scaling``) at 64^3 and 128^3: vanilla, jacobi, fsai, learned,
-     gmg_jacobi, gmg_learned.  Requires every technique converged,
+     gmg_jacobi, gmg_learned, and amg (``--with-amg``: aggregation AMG
+     built once on the host from the jittered operator, a V-cycle on the
+     card, out of the sequences).  Requires every technique converged,
      iterations against the JAX reference
-     (``tests/fixtures/torch_port/scaling_iterations.json``: vanilla
-     within 5%, the others within max(2, 2%)), no safeguard fallback for
+     (``tests/fixtures/torch_port/scaling_iterations.json``, amg
+     ``scaling_amg_iterations.json`` with its hierarchy's level sizes:
+     vanilla within 5%, the others within max(2, 2%)), no safeguard
+     fallback for
      learned, B2 launched by every technique, B1 launched n_pad / 2^18
      times per structured setup (fsai, learned, gmg_learned), no plain
      version run on the card, and the reference's CSV header; the 64^3
@@ -191,15 +213,26 @@ Phases (each raises on failure):
      on the card, the reference's table header; fsai and learned M of a range
      case and a generic case on the card agree with the port's CPU
      float64 path to 1e-4 (relative to max |M|);
-  5. the launches per path, the card line, one JSON line of kernel records
+  (d) on every path, the host runtime's counters read right after it ran:
+     no numpy fallback anywhere (``_backend.host_fallback_counts``), and
+     native calls on every path that factors, levelizes or plans (per case
+     ic0 and levels, incomplete_lu ict and levels, batched ic0,
+     PreconditionerNet's conv and conv-train runs conv_plan; the
+     irregular, frames, training and scaling paths run none of these host
+     steps, and the U-Net's layers are submanifold or strided, numpy by
+     design);
+  5. the launches per path, the host runtime's calls per path, the card
+     line, one JSON line of kernel records
      (per kernel at its main shape: per-call ``ms``, ``kernel_only_ms``,
      ``bound_ms``, ``bound_by``, ``library_ms``, ``plain_ms``), and the
      last line ``{"ok": true, "device": {...}}``.
 
-Without a CUDA device, or outside a checkout of the repository, it exits
-non-zero and prints no result.
+Without a CUDA device, without a C++ compiler for the host runtime, or
+outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 
+import contextlib
 import json
 import re
 import subprocess
@@ -208,12 +241,30 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.sparse as sp
+import scipy.sparse.linalg  # noqa: F401  (sp.linalg)
 import torch
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-from deeppreconditioning_tpu_torch import _backend  # noqa: E402
+from deeppreconditioning_tpu_torch import _backend, native  # noqa: E402
+from deeppreconditioning_tpu_torch.data.fvm import (  # noqa: E402
+    DT,
+    assemble_pressure_poisson,
+    generate_sludge_case,
+)
+from deeppreconditioning_tpu_torch.ops.ic0 import (  # noqa: E402
+    _ic0_inplace,
+    ic0_factor,
+)
+from deeppreconditioning_tpu_torch.ops.sparse_conv import (  # noqa: E402
+    ConvSpec,
+    build_conv_maps,
+)
+from deeppreconditioning_tpu_torch.ops.trisolve import (  # noqa: E402
+    compute_levels,
+)
 from deeppreconditioning_tpu_torch.bench.__main__ import (  # noqa: E402
     SEED,
     SETUP_REPS,
@@ -335,6 +386,7 @@ SCALING_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
 B2_RTOL, B2_ATOL = 1e-5, 1e-6
 B2_MAIN = "poisson_3d_128"  # the scaling path's 128^3 7-band shape
 BANDS_RTOL = 1e-4  # card float32 factor vs CPU float64, relative to max|bands|
+TPU_AMG_RECORD = 12  # assets/results/scaling_learned.csv, 64^3 amg
 SCALING_HEADER = ("shape,technique,n,sigma,iterations,setup_s,solve_s,"
                   "total_s,converged,x_rel_err,safeguard_fallback")
 B3_RTOL, B3_ATOL = 1e-5, 1e-6  # relative to max|plain|, absolute
@@ -409,6 +461,23 @@ SEQ_HEADER = ("shape,technique,n,sigma,k_solves,iterations_mean,setup_s,"
               "solves_s,total_s,converged")
 K_SOLVES = (2, 4, 8)
 LARGE_GRID = 256
+HOST_IC0_RTOL = 1e-12  # the host runtime's IC(0) against the numpy one
+HOST_FVM_RTOL = 1e-14  # its FVM assembly against the numpy one
+# The IC(0) layers of the conv plans: PreconditionerNet's stride-1 ones
+HOST_CONV_SPECS = (ConvSpec((1, 1), (0, 0)), ConvSpec((2, 2), (1, 0)),
+                   ConvSpec((2, 2), (0, 1)))
+ILU_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+               / "ilu_iterations.json")
+# assets/results/table.csv (the reference's test stage on a TPU):
+# incomplete_lu's mean iterations and kappa, context only
+TPU_ILU_RECORD = {"iterations": 30.9, "kappa": 185.37}
+ILU_KAPPA_RTOL = 1e-6  # kappa comes from the float64 host factor
+AMG_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+               / "scaling_amg_iterations.json")
+# The host runtime's calls per path (phase (d)): each path's counts are
+# read right after it ran; a path that factors or levelizes needs its
+# entry points called natively, and no path may take a numpy fallback.
+HOST_PATHS: dict = {}
 
 
 def card_line() -> str:
@@ -418,6 +487,138 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def hold_host(label, needed=()):
+    """Phase (d) on the path just run: the host runtime's entry points in
+    ``needed`` called natively at least once, no numpy fallback taken;
+    adds the counts to ``HOST_PATHS[label]``."""
+    calls = _backend.host_call_counts()
+    fallbacks = _backend.host_fallback_counts()
+    total = HOST_PATHS.setdefault(label, dict.fromkeys(calls, 0))
+    for entry, count in calls.items():
+        total[entry] += count
+    if any(fallbacks.values()):
+        raise AssertionError(f"{label}: numpy fallbacks on the card "
+                             f"{fallbacks}")
+    missing = [entry for entry in needed if calls[entry] == 0]
+    if missing:
+        raise AssertionError(f"{label}: the host runtime's {missing} never "
+                             f"called ({calls})")
+
+
+@contextlib.contextmanager
+def numpy_host_route():
+    """The port's host steps on their numpy versions (the oracle)."""
+    saved = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = saved
+
+
+def host_seconds(fn, reps=5):
+    """Median host seconds of ``fn()`` over ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def check_host_runtime(card):
+    """Phase 2b: the host runtime builds with g++ and loads; on the first
+    flagship case each entry point against the port's numpy version (ic0
+    to HOST_IC0_RTOL, levels and conv_plan equal, ict a valid factor), and
+    each timed natively and in numpy (host clock, median of 5)."""
+    t0 = time.perf_counter()
+    lib = native.require()
+    print(f"host runtime: {Path(lib._name).name} (g++ "
+          f"{' '.join(_backend.HOST_FLAGS)}): build "
+          f"{_backend.host_build_seconds:.2f} s (0 if cached), build and "
+          f"load {time.perf_counter() - t0:.2f} s")
+    a = generate_sludge_case(np.random.default_rng(SEED),
+                             mesh_cells=2).matrix.tocsr()
+    n = a.shape[0]
+    tril = sp.tril(a, format="csr")
+    ours = tril.data.astype(np.float64).copy()
+    want = ours.copy()
+    failures = []
+    if native.ic0(tril.indptr, tril.indices, ours) != 0 or not _ic0_inplace(
+            n, tril.indptr, tril.indices, want):
+        failures.append("ic0: a pivot broke down")
+    ic0_rel = float(np.max(np.abs(ours - want) / np.abs(want)))
+    lf = ic0_factor(a)
+    levels = native.levels(lf.indptr, lf.indices)
+    coo = tril.tocoo()  # sorted sites, as the native plan needs
+    with numpy_host_route():
+        levels_np = compute_levels(lf)
+        conv_np = [build_conv_maps(coo.row, coo.col, (n, n), spec)
+                   for spec in HOST_CONV_SPECS]
+    conv_equal = all(
+        all(np.array_equal(x, y) for x, y in zip(
+            native.conv_plan(coo.row, coo.col, n, n, *spec.kernel,
+                             *spec.padding), ref[:3]))
+        for spec, ref in zip(HOST_CONV_SPECS, conv_np))
+    full = a.copy()
+    full.sort_indices()
+    l_ind, l_idx, l_val = native.ict(full.indptr, full.indices, full.data,
+                                     1, 0.1)
+    l_ict = sp.csr_matrix((l_val, l_idx, l_ind), shape=a.shape)
+    ict_valid = (sp.triu(l_ict, 1).nnz == 0 and np.isfinite(l_val).all()
+                 and (l_ict.diagonal() > 0).all())
+    ict_res = float(sp.linalg.norm(l_ict @ l_ict.T - a) / sp.linalg.norm(a))
+    ict_is_ic0 = (np.array_equal(l_ict.indices, lf.indices)
+                  and np.array_equal(l_ict.indptr, lf.indptr)
+                  and np.allclose(l_ict.data, lf.data, rtol=1e-12, atol=0))
+    rho = 1.0 + 999.0 * np.random.default_rng(SEED).random((24, 32))
+    rows_f, cols_f, vals_f, _ = native.fvm_assemble(*rho.shape, rho, 1.0, 1.0,
+                                                    DT, True)
+    fvm = sp.csr_matrix((vals_f, (rows_f, cols_f)), shape=(rho.size,) * 2)
+    fvm_np = assemble_pressure_poisson(*rho.shape, rho).tocsr()
+    fvm_rel = float(abs(fvm - fvm_np).max() / abs(fvm_np).max())
+    print(f"host runtime on case 0 (n {n}): ic0 max rel diff {ic0_rel:.3e} "
+          f"(limit {HOST_IC0_RTOL}); levels equal "
+          f"{np.array_equal(levels, levels_np)} ({int(levels.max()) + 1} "
+          f"levels); conv_plan equal {conv_equal} ({len(HOST_CONV_SPECS)} "
+          f"layers); ict(1, 0.1) valid {ict_valid}, ||L L^T - A|| / ||A|| "
+          f"{ict_res:.3e}, equal to IC(0)'s factor {ict_is_ic0}; "
+          f"fvm_assemble (24 x 32) max diff / max|A| {fvm_rel:.3e} (limit "
+          f"{HOST_FVM_RTOL})")
+    if ic0_rel > HOST_IC0_RTOL:
+        failures.append(f"ic0: {ic0_rel} off the numpy factor")
+    if not np.array_equal(levels, levels_np):
+        failures.append("levels differ from numpy")
+    if not conv_equal:
+        failures.append("conv_plan differs from numpy")
+    if not ict_valid:
+        failures.append("ict is not a valid factor")
+    if fvm_rel > HOST_FVM_RTOL:
+        failures.append(f"fvm_assemble: {fvm_rel} off the numpy assembly")
+    data = tril.data.astype(np.float64)
+    rows = {
+        "ic0": (lambda: native.ic0(tril.indptr, tril.indices, data.copy()),
+                lambda: _ic0_inplace(n, tril.indptr, tril.indices,
+                                     data.copy())),
+        "levels": (lambda: native.levels(lf.indptr, lf.indices),
+                   lambda: compute_levels(lf)),
+        "conv_plan": (lambda: native.conv_plan(
+            coo.row, coo.col, n, n, 2, 2, 1, 0), lambda: build_conv_maps(
+            coo.row, coo.col, (n, n), HOST_CONV_SPECS[1])),
+    }
+    parts = []
+    for entry, (fast, slow) in rows.items():
+        t_native = host_seconds(fast)
+        with numpy_host_route():
+            t_numpy = host_seconds(slow)
+        parts.append(f"{entry} {t_native * 1e3:.4f} ms (numpy "
+                     f"{t_numpy * 1e3:.4f})")
+    print("host runtime per call on case 0, host clock, median of 5: "
+          + "; ".join(parts) + f" [{card}]")
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def spd_systems(rng, n, w):
@@ -621,11 +822,16 @@ def check_scaling_path(dev, card):
                 scaling.RHS_SEED, scaling.RTOL, scaling.CHECKPOINT,
                 scaling.SMOOTHER_CHECKPOINT):
         raise AssertionError("the scaling fixture describes another run")
+    amg_fixture = json.loads(AMG_FIXTURE.read_text())
+    if (tuple(amg_fixture["shapes"]), amg_fixture["sigma"],
+            amg_fixture["coeff_seed"], amg_fixture["rhs_seed"],
+            amg_fixture["rtol"]) != meta[:5]:
+        raise AssertionError("the amg fixture describes another run")
     csv_path = RESULTS / "scaling_learned.csv"
     seq_path = RESULTS / "multi_rhs.csv"
     t0 = time.perf_counter()
     run = scaling.run_scaling(dev, out=csv_path, k_solves=K_SOLVES,
-                              seq_out=seq_path)
+                              seq_out=seq_path, with_amg=True)
     wall_s = time.perf_counter() - t0
     header = csv_path.read_text().splitlines()[0]
     if header != SCALING_HEADER:
@@ -644,7 +850,9 @@ def check_scaling_path(dev, card):
         side = int(row["shape"].split("^")[0])
         name = row["technique"]
         key = (side, name)
-        ref = fixture["results"][str(side)]["iterations"][name]
+        ref = (amg_fixture["results"][str(side)]["iterations"]
+               if name == "amg"
+               else fixture["results"][str(side)]["iterations"][name])
         iters = row["iterations"]
         launches = run.launches[key]
         plain = run.plain_on_cuda[key]
@@ -672,10 +880,32 @@ def check_scaling_path(dev, card):
                             f" times, expected {want_gj}")
         if any(plain.values()):
             failures.append(f"{key}: plain version ran on the card {plain}")
+        if any(run.host_fallbacks[key].values()):
+            failures.append(f"{key}: numpy fallbacks on the card "
+                            f"{run.host_fallbacks[key]}")
         if name == "learned" and row["safeguard_fallback"]:
             failures.append(f"{key}: the safeguard fell back to q = I")
     print("TPU record for context only (BENCH_r05, TPU v5e, iterations): "
-          + "; ".join(f"{s}^3 {v}" for s, v in TPU_SCALING_RECORD.items()))
+          + "; ".join(f"{s}^3 {v}" for s, v in TPU_SCALING_RECORD.items())
+          + f"; amg 64^3 {TPU_AMG_RECORD} (the TPU faulted at 128^3)")
+    for side, parts in run.amg_builds.items():
+        host = {k: round(v * 1e3, 3) for k, v in parts.items()
+                if k != "level_rows"}
+        row = next(r for r in run.rows
+                   if r["technique"] == "amg" and r["shape"] == f"{side}^3")
+        tpu = (f"TPU record {TPU_AMG_RECORD}" if side == 64
+               else "no TPU record: it faulted there")
+        print(f"  {side}^3 amg: {row['iterations']} iterations ({tpu}); "
+              f"level rows {parts['level_rows']} (JAX "
+              f"{amg_fixture['results'][str(side)]['level_rows']}); host "
+              f"setup parts (ms) {host}, aggregation "
+              f"{parts['aggregate'] / row['setup_s']:.3f} of the setup "
+              f"{row['setup_s'] * 1e3:.3f} ms [{card}]")
+        if parts["level_rows"][:-1] != amg_fixture["results"][str(side)][
+                "level_rows"]:
+            failures.append(f"{side}^3 amg: hierarchy differs from JAX")
+    if "amg" in {r["technique"] for r in run.seq_rows}:
+        failures.append("amg ran the sequences")
     check_sequences(run, fixture, card, failures)
     if failures:
         raise AssertionError("; ".join(failures))
@@ -922,6 +1152,7 @@ def check_frames_path(dev, card):
     suite = frames.run(dev, results_directory=RESULTS / "frames",
                        timing_reps=SHALLOW_TIMING_REPS)
     launches = _backend.launch_counts()
+    hold_host("frames")
     plain = _backend.plain_cuda_counts()
     wall_s = time.perf_counter() - t0
     if (fixture["seed"], fixture["cases"], fixture["n_pad"]) != (
@@ -1019,6 +1250,67 @@ def hold_counts(label, iters, ref, success, ref_success, case_tol,
     return mean, ref_mean, int(delta.max())
 
 
+def check_ilu_path(cases, card):
+    """Phase 4k: the technique incomplete_lu per case on the main path's
+    split through the test-stage entry point (``python -m
+    deeppreconditioning_tpu_torch.test --techniques incomplete_lu``'s
+    ``run``), against the JAX CPU float32 fixture (ICT on the reference's
+    native route): success as the fixture, per-case |delta| <= 2, the mean
+    within 1%; density and kappa of the first cases as the fixture's (the
+    factor and kappa are float64 host work); the host runtime's ICT and
+    levels called, no numpy fallback, no plain version on the card.
+    Prints the mean beside the TPU table's."""
+    fixture = json.loads(ILU_FIXTURE.read_text())
+    args = test_entry.parse_args([
+        "--model", "NeuralFSAI", "--checkpoint",
+        str(REPO / "assets" / "checkpoints_fsai" / "best.msgpack"),
+        "--techniques", "incomplete_lu",
+        "--kappa-cases", str(fixture["kappa_cases"]),
+        "--results-dir", str(RESULTS / "ilu")])
+    t0 = time.perf_counter()
+    _backend.reset_launch_counts()
+    suite = test_entry.run(args, cases=cases)
+    plain = _backend.plain_cuda_counts()
+    hold_host("incomplete_lu", ("ict", "levels"))
+    wall_s = time.perf_counter() - t0
+    if (fixture["seed"], fixture["cases"], fixture["n_pad"]) != (
+            SEED, len(suite.data_set), suite.data_set.dof_pad):
+        raise AssertionError("the incomplete_lu fixture describes another "
+                             "split")
+    name = "incomplete_lu"
+    failures = []
+    success = [s == 100.0 for s in suite.successes[name]]
+    mean, ref_mean, worst = hold_counts(
+        name, suite.iterations[name], fixture["iterations"], success,
+        fixture["success"], 2, 0.01, failures)
+    kappas = suite.kappas[name][:fixture["kappa_cases"]]
+    if not np.allclose(kappas, fixture["kappas"], rtol=ILU_KAPPA_RTOL,
+                       atol=0):
+        failures.append(f"{name}: kappas {kappas} vs {fixture['kappas']}")
+    if not np.allclose(suite.densities[name], fixture["densities"],
+                       rtol=1e-12, atol=0):
+        failures.append(f"{name}: densities differ from the fixture")
+    if any(plain.values()):
+        failures.append(f"{name}: a plain version ran on the card {plain}")
+    header = (RESULTS / "ilu" / "table.csv").read_text().splitlines()[0]
+    if header != "technique," + ",".join(TABLE_PARAMETERS):
+        failures.append(f"{name}: table schema changed: {header}")
+    print(f"incomplete_lu per case on {card}: {len(suite.data_set)} cases, "
+          f"{wall_s:.1f} s wall; iters {mean:.2f} (JAX CPU f32 "
+          f"{ref_mean:.2f}, max |delta| per case {worst}; TPU table "
+          f"{TPU_ILU_RECORD['iterations']}, context only), kappa "
+          f"{np.mean(kappas):.4f} (JAX {np.mean(fixture['kappas']):.4f}, TPU "
+          f"table {TPU_ILU_RECORD['kappa']}), density "
+          f"{np.mean(suite.densities[name]):.6f} %, setup "
+          f"{np.median(suite.setups[name]) * 1e3:.3f} solve "
+          f"{np.median(suite.durations[name]) * 1e3:.3f} total "
+          f"{np.median(suite.totals[name]) * 1e3:.3f} ms (medians), success "
+          f"{np.mean(success) * 100:.0f}%; host runtime calls "
+          f"{HOST_PATHS['incomplete_lu']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def check_conv_path(cases, card):
     """Phase 4g: the conv families' learned technique through the
     test-stage entry point, per fixture run; returns the launches."""
@@ -1039,6 +1331,8 @@ def check_conv_path(cases, card):
         suite = test_entry.run(args, cases=cases,
                                learned_apply=ref["learned_apply"])
         run_launches = _backend.launch_counts()
+        hold_host("conv", ("conv_plan",) if ref["model"]
+                  == "PreconditionerNet" else ())
         plain = _backend.plain_cuda_counts()
         wall_s = time.perf_counter() - t0
         data_set = suite.data_set
@@ -1166,6 +1460,7 @@ def check_training_path(cases, card):
     _backend.reset_launch_counts()
     run = train_entry.run(args, cases=cases)
     launches = _backend.launch_counts()
+    hold_host("train")
     plain = _backend.plain_cuda_counts()
     wall_s = time.perf_counter() - t0
     data_set, state = run.data_set, run.state
@@ -1272,6 +1567,8 @@ def check_conv_training(cases, card):
         _backend.reset_launch_counts()
         run = train_entry.run(args, cases=cases)
         run_launches = _backend.launch_counts()
+        hold_host("conv-train", ("conv_plan",) if model
+                  == "PreconditionerNet" else ())
         plain = _backend.plain_cuda_counts()
         wall_s = time.perf_counter() - t0
         peak_bytes = torch.cuda.max_memory_allocated()
@@ -1399,6 +1696,7 @@ def check_batched_path(suite, fixture, card):
     _backend.reset_launch_counts()
     batched = run_batched(suite)
     launches = _backend.launch_counts()
+    hold_host("batched", ("ic0",))
     plain = _backend.plain_cuda_counts()
     wall_s = time.perf_counter() - t0
     suite.dump_csv_batched()
@@ -1486,6 +1784,7 @@ def check_irregular_path(dev, fixture, card):
     suite = irregular.run(dev, results_directory=RESULTS / "irregular",
                           timing_reps=SHALLOW_TIMING_REPS)
     launches = _backend.launch_counts()
+    hold_host("irregular")
     plain = _backend.plain_cuda_counts()
     wall_s = time.perf_counter() - t0
     if (ref["seed"], ref["cases"], ref["n_pad"]) != (
@@ -1768,6 +2067,9 @@ def main() -> None:
     _backend.kernel_library()
     build_report(time.perf_counter() - t0)
 
+    # 2b. the host runtime: built, loaded, held against numpy
+    check_host_runtime(card)
+
     # 3. kernels against their plain versions
     gj_err, gj_times = check_gauss_jordan(dev, card)
     dia_err, dia_times = check_dia_spmv(dev, card)
@@ -1787,6 +2089,7 @@ def main() -> None:
     _backend.reset_launch_counts()
     suite = run_main_path(dev, results_directory=RESULTS, cases=cases)
     launches = _backend.launch_counts()["gauss_jordan"]
+    hold_host("per-case", ("ic0", "levels"))
     plain = _backend.plain_cuda_counts()
     wall_s = time.perf_counter() - t0
     if (fixture["seed"], fixture["cases"], fixture["n_pad"]) != (
@@ -1839,6 +2142,9 @@ def main() -> None:
         raise AssertionError("; ".join(failures))
     check_setup_against_cpu(
         suite, REPO / "assets" / "checkpoints_fsai" / "best.msgpack")
+
+    # 4k. incomplete_lu per case on the same split
+    check_ilu_path(cases, card)
 
     # 4g. the conv families on the same split
     conv_launches = check_conv_path(cases, card)
@@ -1898,6 +2204,9 @@ def main() -> None:
              "large-solve": large_launches}
     print("launches per path: " + "; ".join(
         f"{path} {counts}" for path, counts in paths.items()))
+    print("host runtime calls per path (no numpy fallback on any): "
+          + "; ".join(f"{path} {counts}"
+                      for path, counts in HOST_PATHS.items()))
     print(card_line())
     print(json.dumps({"kernels": [{
         "name": "gauss_jordan",

@@ -13,6 +13,14 @@ Every plain version calls ``count_plain(name, tensor)``, which counts the
 calls made on a CUDA tensor (``plain_cuda_counts``): a main path on the
 card must read 0 there, since on the card only a comparison with the
 kernel runs the plain version.
+
+The host runtime (``csrc/host_runtime.cpp``: IC(0), ICT, trisolve levels,
+conv plans, FVM assembly) is C++ for the host, built with ``g++`` into
+``build/torch_host/`` on first use (``host_library``) and bound by
+``native/__init__.py``.  Each native call is counted per entry point
+(``count_host_call``), and so is each call that took an entry point's
+numpy version instead (``count_host_fallback``): a path on the card must
+read 0 fallbacks.  ``reset_launch_counts`` zeroes these counts too.
 """
 
 from __future__ import annotations
@@ -39,12 +47,21 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS = ("gauss_jordan", "dia_spmv", "bsr_spmm")
+HOST_SOURCE = CSRC / "host_runtime.cpp"
+HOST_BUILD_DIR = BUILD_DIR.parent / "torch_host"
+# -ffp-contract=off: no fused multiply-add, so a factor rounds as numpy's
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
+HOST_ENTRIES = ("conv_plan", "ic0", "ict", "levels", "fvm_assemble")
 
 _launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _plain_on_cuda: dict[str, int] = dict.fromkeys(KERNELS, 0)
+_host_calls: dict[str, int] = dict.fromkeys(HOST_ENTRIES, 0)
+_host_fallbacks: dict[str, int] = dict.fromkeys(HOST_ENTRIES, 0)
 _library: ctypes.CDLL | None = None
+_host: ctypes.CDLL | None = None
 build_log: str = ""  # nvcc's output (ptxas register/spill report)
 build_seconds: dict[str, float] = {}  # source name -> seconds of its nvcc
+host_build_seconds: float = 0.0  # g++'s seconds (0 if the build was cached)
 
 
 def device() -> torch.device:
@@ -66,11 +83,24 @@ def count_plain(name: str, tensor: torch.Tensor) -> None:
         _plain_on_cuda[name] += 1
 
 
+def count_host_call(name: str) -> None:
+    _host_calls[name] += 1
+
+
+def count_host_fallback(name: str) -> None:
+    """Record a call that ran entry point ``name``'s numpy version."""
+    _host_fallbacks[name] += 1
+
+
 def reset_launch_counts() -> None:
-    """Zero the launch counts and the plain-on-CUDA counts."""
+    """Zero the launch counts, the plain-on-CUDA counts and the host
+    runtime's call and fallback counts."""
     for name in KERNELS:
         _launches[name] = 0
         _plain_on_cuda[name] = 0
+    for name in HOST_ENTRIES:
+        _host_calls[name] = 0
+        _host_fallbacks[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -79,6 +109,14 @@ def launch_counts() -> dict[str, int]:
 
 def plain_cuda_counts() -> dict[str, int]:
     return dict(_plain_on_cuda)
+
+
+def host_call_counts() -> dict[str, int]:
+    return dict(_host_calls)
+
+
+def host_fallback_counts() -> dict[str, int]:
+    return dict(_host_fallbacks)
 
 
 def _nvcc() -> str:
@@ -175,3 +213,46 @@ def kernel_library() -> ctypes.CDLL:
     lib.dp_bsr_spmm_f32.restype = ctypes.c_int
     _library = lib
     return lib
+
+
+def host_compiler() -> str | None:
+    """The C++ compiler of the host runtime (``$CXX``, else ``g++``), or
+    None if there is none."""
+    return shutil.which(os.environ.get("CXX", "g++"))
+
+
+def host_library() -> ctypes.CDLL:
+    """Build (once per source content and flags) and load the host runtime.
+
+    ``g++`` compiles ``csrc/host_runtime.cpp`` to a temporary name that
+    is renamed into place, so processes that build at once never load a
+    half-written library.  Raises with the compiler's output if the build
+    fails, and if there is no compiler.
+    """
+    global _host, host_build_seconds
+    if _host is not None:
+        return _host
+    cxx = host_compiler()
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ or $CXX): cannot build the "
+                           "host runtime")
+    digest = hashlib.sha256(HOST_SOURCE.read_bytes())
+    digest.update(" ".join(HOST_FLAGS).encode())
+    lib_path = HOST_BUILD_DIR / f"libdp_host_{digest.hexdigest()[:16]}.so"
+    if not lib_path.exists():
+        HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [cxx, *HOST_FLAGS, "-o", str(tmp), str(HOST_SOURCE)],
+            capture_output=True, text=True,
+        )
+        if out.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"{cxx} failed to build the host runtime:\n"
+                f"{out.stdout}{out.stderr}")
+        os.replace(tmp, lib_path)
+        host_build_seconds = time.perf_counter() - t0
+    _host = ctypes.CDLL(str(lib_path))
+    return _host

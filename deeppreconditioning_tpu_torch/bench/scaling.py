@@ -3,21 +3,26 @@
     python -m deeppreconditioning_tpu_torch.bench.scaling [--shapes 64,128]
         [--ckpt CKPT] [--smoother-ckpt CKPT] [--reps 5] [--sigma 1.0]
         [--rhs random|ax] [--k-solves 2,4,8] [--seq-out CSV] [--out CSV]
-        [--no-gmg] [--device cpu]
+        [--no-gmg] [--with-amg] [--device cpu]
 
-Counterpart of ``scripts/scaling_learned.py::run_scaling`` (without its
-AMG technique, ``--with-amg``) as ``bench.py``'s scaling section calls
-it: variable-coefficient Poisson (lognormal kappa, sigma 1.0,
-coefficients from ``default_rng(1)``; ``--sigma 0`` the constant
-``poisson_dia``), a right-hand side from ``default_rng(2)`` (random, or
-``--rhs ax``: b = A x* with x* standard normal, the known solution), rtol
-1e-8 on ||r||^2 / ||b||^2, and the techniques vanilla, jacobi, fsai
+Counterpart of ``scripts/scaling_learned.py::run_scaling`` as
+``bench.py``'s scaling section calls it: variable-coefficient Poisson
+(lognormal kappa, sigma 1.0, coefficients from ``default_rng(1)``;
+``--sigma 0`` the constant ``poisson_dia``), a right-hand side from
+``default_rng(2)`` (random, or ``--rhs ax``: b = A x* with x* standard
+normal, the known solution), rtol 1e-8 on ||r||^2 / ||b||^2, and the
+techniques vanilla, jacobi, fsai
 (structured FSAI), learned (the structured NeuralFSAI head, by default
 ``deg1_random.msgpack``), gmg_jacobi and gmg_learned (geometric
 multigrid, the finest level smoothed by the head ``deg0_p1.msgpack`` in
 the learned checkpoint's folder, or ``--smoother-ckpt``; classical FSAI
-where there is none).  Every CG operator is a DIA matvec (kernel B2 on
-the card).
+where there is none).  ``--with-amg`` adds the reference's amg technique:
+aggregation AMG (``ops/amg.build_amg``) built on the host from the
+operator jittered by ``next_unique() * 1.2e-7`` (``DIAMatrix.to_scipy``),
+one build timed on the host clock up to the device sync (its host parts
+in ``ScalingRun.amg_builds``), applied as a V(1,1)-cycle; it sits out
+the sequences, as in the reference.  Every CG operator is a DIA matvec
+(kernel B2 on the card).
 
 Per shape and technique: the setup, timed with CUDA events (median of
 ``reps`` after a warm-up), the chunked PCG solve for the iteration count
@@ -38,8 +43,10 @@ the tests call ``run_scaling`` on the CPU.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
-from dataclasses import dataclass, field
+import time
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +61,7 @@ from deeppreconditioning_tpu_torch.data.poisson import (
 from deeppreconditioning_tpu_torch.models.neural_fsai import (
     neural_fsai_from_checkpoint,
 )
+from deeppreconditioning_tpu_torch.ops.amg import amg_apply, build_amg
 from deeppreconditioning_tpu_torch.ops.dia_spmv import dia_matvec
 from deeppreconditioning_tpu_torch.ops.gmg import (
     build_gmg,
@@ -75,7 +83,10 @@ from deeppreconditioning_tpu_torch.solvers.cg import (
 )
 from deeppreconditioning_tpu_torch.sparse.dia import poisson_dia
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
-from deeppreconditioning_tpu_torch.utils.profiling import time_call
+from deeppreconditioning_tpu_torch.utils.profiling import (
+    synchronize,
+    time_call,
+)
 
 REPO = Path(__file__).resolve().parents[2]
 CHECKPOINT_DIR = REPO / "assets" / "checkpoints_structured"
@@ -101,6 +112,7 @@ CSV_COLUMNS = ("shape", "technique", "n", "sigma", "iterations", "setup_s",
 SEQ_COLUMNS = ("shape", "technique", "n", "sigma", "k_solves",
                "iterations_mean", "setup_s", "solves_s", "total_s",
                "converged")
+_UNIQUE = itertools.count(1)  # the amg jitter's counter (next_unique)
 
 
 @dataclass
@@ -108,21 +120,27 @@ class ScalingRun:
     """What one run measured.  Keys of the dicts are (side, technique).
 
     ``setup_calls`` counts the technique's setup builds (warm-up, timing
-    reps and the kept one); for fsai, learned and gmg_learned each build
-    runs one ``structured_setup``.  ``launches`` / ``plain_on_cuda`` are
-    the kernel counters over the technique's setups, solves and
-    sequences.  ``seq_rows`` are the multi-RHS rows, ``details`` the
-    reference's JSON (per shape and technique the iterations and total
-    ms, per shape the crossover k).
+    reps and the kept one; amg's one); for fsai, learned and gmg_learned
+    each build runs one ``structured_setup``.  ``amg_builds`` holds per
+    side the host seconds of amg's build by part (``to_scipy``, then
+    ``build_amg``'s ``aggregate``, ``galerkin``, ``transfer`` and
+    ``coarse``) and its hierarchy's row counts (``level_rows``).
+    ``launches`` / ``plain_on_cuda`` are the kernel counters over the
+    technique's setups, solves and sequences, and ``host_fallbacks``
+    the host runtime's numpy fallbacks there.  ``seq_rows`` are the
+    multi-RHS rows, ``details`` the reference's JSON (per shape and
+    technique the iterations and total ms, per shape the crossover k).
     """
 
     rows: list = field(default_factory=list)
     setup_calls: dict = field(default_factory=dict)
     launches: dict = field(default_factory=dict)
     plain_on_cuda: dict = field(default_factory=dict)
+    host_fallbacks: dict = field(default_factory=dict)
     learned_q: dict = field(default_factory=dict)  # side -> list
     seq_rows: list = field(default_factory=list)
     details: dict = field(default_factory=dict)
+    amg_builds: dict = field(default_factory=dict)  # side -> dict
 
 
 def scaling_problem(side: int, dtype=torch.float32, device=None,
@@ -189,6 +207,30 @@ def load_models(dtype=torch.float32, device=None, ckpt=None,
     return tuple(models)
 
 
+def next_unique() -> int:
+    """A process-unique small integer (the amg setup's jitter)."""
+    return next(_UNIQUE)
+
+
+def amg_setup(a, record: dict | None = None):
+    """The reference's amg setup: A jittered by ``next_unique() * 1.2e-7``
+    in its values' dtype, its scipy CSR, and ``build_amg`` on the
+    values' device; ``record`` gathers the host seconds by part and the
+    hierarchy's row counts (the root's padded)."""
+    t0 = time.perf_counter()
+    jit = torch.tensor(next_unique() * 1.2e-7, dtype=a.vals.dtype)
+    scale = (1.0 + jit).to(a.vals.device)
+    csr = replace(a, vals=a.vals * scale).to_scipy()
+    timings = {"to_scipy": time.perf_counter() - t0}
+    m = build_amg(csr, n_pad=a.n_pad, dtype=a.vals.dtype,
+                  device=a.vals.device, timings=timings)
+    if record is not None:
+        record.update(timings)
+        record["level_rows"] = [lev.ell.n for lev in m.levels] + [
+            int(m.coarse_inv.shape[0])]
+    return m
+
+
 def _setups(a, shape, models):
     """technique -> (apply_m, setup builder or None)."""
     learned, power, smoother, smoother_power = models
@@ -211,6 +253,7 @@ def _setups(a, shape, models):
         "gmg_learned": (gmg_apply, lambda: build_gmg(
             a, shape, model=smoother, plan_power=smoother_power,
             fsai_levels=1)),
+        "amg": (amg_apply, None),  # one host-timed build in run_scaling
     }
 
 
@@ -239,11 +282,14 @@ def run_scaling(device, shapes=SHAPES, dtype=torch.float32,
                 reps: int = TIMING_REPS, out: Path | None = RESULTS_CSV,
                 techniques=TECHNIQUES, sigma: float = SIGMA,
                 rhs: str = "random", k_solves=(), seq_out: Path | None = None,
-                ckpt=None, smoother_ckpt=None) -> ScalingRun:
+                ckpt=None, smoother_ckpt=None,
+                with_amg: bool = False) -> ScalingRun:
     """Run the scaling comparison on ``device`` (see the module
     docstring); the kernel counters are reset per technique."""
     device = torch.device(device)
     models = load_models(dtype, device, ckpt, smoother_ckpt)
+    if with_amg and "amg" not in techniques:
+        techniques = (*techniques, "amg")
     run = ScalingRun()
     for side in shapes:
         shape = (side, side, side)
@@ -260,7 +306,13 @@ def run_scaling(device, shapes=SHAPES, dtype=torch.float32,
 
             _backend.reset_launch_counts()
             setup_s, m_data = 0.0, None
-            if build is not None:
+            if name == "amg":  # host-bound: one build on the host clock
+                t0 = time.perf_counter()
+                m_data = amg_setup(a, run.amg_builds.setdefault(side, {}))
+                synchronize(device)
+                setup_s = time.perf_counter() - t0
+                calls[0] = 1
+            elif build is not None:
                 setup_s = time_call(counted_build, device, reps=reps)
                 m_data = counted_build()
             res = preconditioned_conjugate_gradient(
@@ -304,7 +356,7 @@ def run_scaling(device, shapes=SHAPES, dtype=torch.float32,
                 "it": iters, "total_ms": (setup_s + solve_s) * 1e3}
             if out is not None:
                 write_csv(Path(out), run.rows)
-            for k in k_solves:
+            for k in (() if name == "amg" else k_solves):
                 b_seq = rhs_sequence(a, b, x_star, k)
                 seq_trips = min(int(iters * 1.3) + 4, MAX_ITER)
 
@@ -329,6 +381,7 @@ def run_scaling(device, shapes=SHAPES, dtype=torch.float32,
                     write_csv(Path(seq_out), run.seq_rows, SEQ_COLUMNS)
             run.launches[key] = _backend.launch_counts()
             run.plain_on_cuda[key] = _backend.plain_cuda_counts()
+            run.host_fallbacks[key] = _backend.host_fallback_counts()
             run.setup_calls[key] = calls[0]
         if k_solves:
             k = crossover_k(run.seq_rows, side, k_solves)
@@ -353,6 +406,9 @@ def main(argv=None) -> None:
     parser.add_argument("--seq-out", default=str(SEQ_CSV))
     parser.add_argument("--out", default=str(RESULTS_CSV))
     parser.add_argument("--no-gmg", action="store_true")
+    parser.add_argument("--with-amg", action="store_true",
+                        help="add the aggregation-AMG technique (host "
+                        "setup)")
     parser.add_argument("--device", default=None,
                         help="'cpu' for the CPU; the card otherwise")
     args = parser.parse_args(argv)
@@ -365,7 +421,8 @@ def main(argv=None) -> None:
                       reps=args.reps, out=Path(args.out),
                       techniques=techniques, sigma=args.sigma, rhs=args.rhs,
                       k_solves=ks, seq_out=Path(args.seq_out) if ks else None,
-                      ckpt=args.ckpt, smoother_ckpt=args.smoother_ckpt)
+                      ckpt=args.ckpt, smoother_ckpt=args.smoother_ckpt,
+                      with_amg=args.with_amg)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {name}; CSV {args.out}" + (f", {args.seq_out}" if ks
@@ -381,6 +438,9 @@ def main(argv=None) -> None:
         print(f"{row['shape']:<6} {row['technique']:<12} k {row['k_solves']}"
               f" iterations_mean {row['iterations_mean']} total_ms "
               f"{row['total_s'] * 1e3:.3f} converged {row['converged']}")
+    for side, parts in run.amg_builds.items():
+        print(f"{side}^3 amg host setup (s): " + ", ".join(
+            f"{k} {v}" for k, v in parts.items()))
     print("JSON:" + json.dumps(run.details))
 
 

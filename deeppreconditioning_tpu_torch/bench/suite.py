@@ -1,10 +1,12 @@
 """Preconditioner benchmark suite: the per-case and the batched protocol.
 
 Counterpart of ``deeppreconditioning_tpu/bench/suite.py::BenchmarkSuite``
-for bench.py's seven techniques: vanilla, jacobi, incomplete_cholesky
+for the reference's eight techniques: vanilla, jacobi, incomplete_cholesky
 (IC(0), two level-scheduled triangular solves), incomplete_cholesky_neumann
-(IC(0) through truncated Neumann sweeps), algebraic_multigrid (a V(1,1)
-cycle), fsai and learned: NeuralFSAI, or a conv family
+(IC(0) through truncated Neumann sweeps), incomplete_lu (ICT(1, 0.1), the
+same two solves), algebraic_multigrid (a V(1,1) cycle), fsai and learned
+(bench.py's seven, ``TECHNIQUES``, are the default and the main path;
+``ALL_TECHNIQUES`` adds incomplete_lu): NeuralFSAI, or a conv family
 (``PreconditionerNet``, ``PreconditionerSparseUNet``) over the dataset's
 conv plans, applied as a dense M = L L^T (``learned_apply="dense"``) or in
 factor form z = L (L^T r) (``"factor"``, ``ops/factor_apply``).
@@ -14,16 +16,18 @@ from the dataset's scaled host sample; per case and technique it records
 kappa, density %, PCG iterations, setup seconds, solve seconds, their
 total and success %, and ``dump_csv`` writes the reference's table schema
 ``technique,kappas,densities,iterations,setups,durations,totals,successes``.
-The IC and AMG setups are host work (factorization, levels, aggregation)
-plus their transfer to the card, timed as such.
+The IC, ILU and AMG setups are host work (factorization and levels in
+the host runtime, aggregation in numpy) plus their transfer to the card,
+timed as such.
 
 Timing: median of ``timing_reps`` synchronized runs after a warm-up
 (``utils/profiling.time_call``: CUDA events on the card), one run for the
-host-bound techniques (``HOST_BOUND_TECHNIQUES``: IC, IC-Neumann, AMG).  FSAI plans and
-the dense scaled matrix are input preparation, built outside the timed
-setup and cached, as in the reference.  A case whose pattern fits the
-range-blocked plan takes it; any other case falls back to the generic
-``FSAIPlan`` (``generic_cases`` records which, per technique).  As in the
+host-bound techniques (``HOST_BOUND_TECHNIQUES``: IC, IC-Neumann, ILU,
+AMG).  FSAI plans and the dense scaled matrix are input preparation,
+built outside the timed setup and cached, as in the reference.  A case
+whose pattern fits the range-blocked plan takes it; any other case falls
+back to the generic ``FSAIPlan`` (``generic_cases`` records which, per
+technique).  As in the
 reference, the generic classical setup computes in the value vector's
 float32 whatever ``dtype`` is.  ``prep_seconds`` adds up that untimed
 input preparation (pattern powers, plan builds), which bench.py reports
@@ -106,6 +110,7 @@ from deeppreconditioning_tpu_torch.ops.fsai import (
 )
 from deeppreconditioning_tpu_torch.ops.ic0 import (
     ic0_factor,
+    ict_factor,
     jacobi_preconditioner,
 )
 from deeppreconditioning_tpu_torch.ops.trisolve import (
@@ -127,14 +132,21 @@ from deeppreconditioning_tpu_torch.sparse.ell import ELLMatrix
 from deeppreconditioning_tpu_torch.utils.profiling import time_call
 
 RESULTS_DIRECTORY = Path("./assets/results/torch/")
+# bench.py's seven: the suite's default and the main path's
 TECHNIQUES = ("vanilla", "jacobi", "incomplete_cholesky",
               "incomplete_cholesky_neumann", "algebraic_multigrid",
               "fsai", "learned")
+# the reference's eight (its test stage's ``--techniques all``)
+ALL_TECHNIQUES = ("vanilla", "jacobi", "incomplete_cholesky",
+                  "incomplete_cholesky_neumann", "incomplete_lu",
+                  "algebraic_multigrid", "fsai", "learned")
 # timed once per case (per case) or per technique (batched setup): their
-# setups are host work (IC(0), levels, aggregation), and the level-scheduled
-# IC solve (~120 waves of eager launches per apply) is the slowest technique
+# setups are host work (IC(0), ICT, levels, aggregation), and the
+# level-scheduled IC solve (~120 waves of eager launches per apply) is the
+# slowest technique
 HOST_BOUND_TECHNIQUES = frozenset({"incomplete_cholesky",
                                    "incomplete_cholesky_neumann",
+                                   "incomplete_lu",
                                    "algebraic_multigrid"})
 TABLE_PARAMETERS = ["kappas", "densities", "iterations", "setups",
                     "durations", "totals", "successes"]
@@ -382,7 +394,7 @@ class BenchmarkSuite:
     }
 
     def __post_init__(self):
-        unknown = set(self.techniques) - set(TECHNIQUES)
+        unknown = set(self.techniques) - set(ALL_TECHNIQUES)
         if unknown:
             raise ValueError(f"techniques not ported: {sorted(unknown)}")
         self.device = torch.device(self.device)
@@ -463,25 +475,38 @@ class BenchmarkSuite:
             return _diag_apply, d_dev, None, None
         return _diag_apply, d_dev, 100.0 * n0 / (n0 * n0), sp.diags(d[:n0]).tocsr()
 
-    def _setup_incomplete_cholesky(self, index, a_sp, ell, need_dense,
-                                   timing=False):
-        """IC(0) on the host, applied as z = L^-T L^-1 r by two
+    def _tri_setup(self, name, l, ell, need_dense, timing):
+        """A host factor L applied as z = L^-T L^-1 r by two
         level-scheduled triangular solves on the device."""
-        l = ic0_factor(a_sp)
         lower = build_tri_schedule(l, n_pad=ell.n_pad).to(self.device,
                                                             self.dtype)
         upper = transpose_schedule(l, n_pad=ell.n_pad).to(self.device,
                                                            self.dtype)
-        self.setup_calls["incomplete_cholesky"] += 1
+        self.setup_calls[name] += 1
         if timing:
             return _tri_apply, (lower, upper), None, None
-        n0 = a_sp.shape[0]
+        n0 = l.shape[0]
         m_sp = None
         if need_dense:  # M = L^-T L^-1 materialized for kappa only
             linv = sp.linalg.spsolve_triangular(l.tocsr(), np.eye(n0),
                                                 lower=True)
             m_sp = sp.csr_matrix(linv.T @ linv)
         return _tri_apply, (lower, upper), 100.0 * l.nnz / (n0 * n0), m_sp
+
+    def _setup_incomplete_cholesky(self, index, a_sp, ell, need_dense,
+                                   timing=False):
+        """IC(0) on the host, applied by the two triangular solves."""
+        return self._tri_setup("incomplete_cholesky", ic0_factor(a_sp), ell,
+                               need_dense, timing)
+
+    def _setup_incomplete_lu(self, index, a_sp, ell, need_dense,
+                             timing=False):
+        """The reference's ILUT analog: for SPD input the ILU factors are
+        the ICT pair (L, L^T), ICT(add_fill_in 1, threshold 0.1) on the
+        host, applied by the two triangular solves."""
+        return self._tri_setup(
+            "incomplete_lu", ict_factor(a_sp, add_fill_in=1, threshold=0.1),
+            ell, need_dense, timing)
 
     def _setup_incomplete_cholesky_neumann(self, index, a_sp, ell,
                                            need_dense, timing=False):

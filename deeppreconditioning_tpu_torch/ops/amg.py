@@ -14,6 +14,7 @@ root solve one dense matvec.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -189,11 +190,24 @@ def build_amg(
     max_levels: int = 16,
     smooth_prolongation: bool = True,
     device=None,
+    timings: Optional[dict] = None,
 ) -> AMGPreconditioner:
     """The hierarchy of a scipy SPD matrix (host build, tensors on
     ``device``): aggregate at least once, then until the coarse operator
     has at most ``coarse_target`` rows (or ``max_levels``, or coarsening
-    stalls), and invert that root densely (symmetrized)."""
+    stalls), and invert that root densely (symmetrized).  ``timings``, if
+    given, gathers the host seconds of the aggregation (``aggregate``),
+    the prolongations and Galerkin products (``galerkin``), the ELL
+    conversions and copies to ``device`` (``transfer``) and the root
+    inverse (``coarse``)."""
+    clock = {"t": time.perf_counter()}
+
+    def lap(part):
+        now = time.perf_counter()
+        if timings is not None:
+            timings[part] = timings.get(part, 0.0) + now - clock["t"]
+        clock["t"] = now
+
     csr = sp.csr_matrix(a, dtype=np.float64)
     n = csr.shape[0]
     if n_pad is None:
@@ -204,10 +218,12 @@ def build_amg(
 
     levels = []
     lvl_csr, lvl_pad = csr, n_pad
+    lap("galerkin")  # the float64 copy of A
     while len(levels) < max_levels - 1 and (
             not levels or lvl_csr.shape[0] > coarse_target):
         nf = lvl_csr.shape[0]
         agg, nc = _aggregate(lvl_csr, theta if not levels else theta_coarse)
+        lap("aggregate")
         if nc >= nf:  # coarsening stalled
             break
         p = _prolongation(lvl_csr, agg, nc,
@@ -215,6 +231,7 @@ def build_amg(
         a_c = (p.T @ lvl_csr @ p).tocsr()
         if filter_eps:
             a_c = _filter_weak(a_c, filter_eps)
+        lap("galerkin")
         nc_pad = _pad8(nc)
         agg_pad = np.full(lvl_pad, nc_pad, np.int64)
         agg_pad[:nf] = agg
@@ -237,13 +254,16 @@ def build_amg(
             omega=omega,
         ))
         lvl_csr, lvl_pad = a_c, nc_pad
+        lap("transfer")
 
     nc = lvl_csr.shape[0]
     coarse_inv = np.zeros((lvl_pad, lvl_pad))
     inv = np.linalg.inv(lvl_csr.toarray())
     coarse_inv[:nc, :nc] = 0.5 * (inv + inv.T)
-    return AMGPreconditioner(levels=tuple(levels),
-                             coarse_inv=t(coarse_inv).to(dtype))
+    out = AMGPreconditioner(levels=tuple(levels),
+                            coarse_inv=t(coarse_inv).to(dtype))
+    lap("coarse")
+    return out
 
 
 def _restrict(m: AMGLevel, res: torch.Tensor) -> torch.Tensor:

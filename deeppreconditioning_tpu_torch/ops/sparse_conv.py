@@ -6,9 +6,10 @@ set and one gather map per kernel offset, for ordinary, strided and
 submanifold layers), ``build_inverse_conv_maps`` (the inverse conv that
 restores a strided conv's input set), ``build_sample_plan`` (a chain of
 layers on one sample), ``pad_plans_by_level`` / ``pad_sample_plans``
-(padding to per-level buckets) and ``stack_plans``.  The reference takes a
-native branch for sorted stride-1 ordinary layers; it returns the same
-integers as the numpy path kept here.
+(padding to per-level buckets) and ``stack_plans``.  As in the reference,
+``build_conv_maps`` builds a sorted stride-1 ordinary layer in the host
+runtime (``native.conv_plan``) when it is available; the numpy path gives
+the same integers and stays as the fallback and the oracle.
 
 The device half is ``apply_sparse_conv``: ``out = sum_k feat_ext[gather[k]]
 @ W[k] + b`` at the valid output sites, where ``feat_ext`` is the input
@@ -31,6 +32,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from deeppreconditioning_tpu_torch import _backend, native
 
 
 @dataclass(frozen=True)
@@ -105,6 +108,14 @@ def build_conv_maps(
     w_in = hw_in[1]
 
     lin_in = rows.astype(np.int64) * w_in + cols
+    if not spec.submanifold and s == 1 and rows.shape[0] > 0 and np.all(
+            lin_in[:-1] <= lin_in[1:]):
+        # the native plan's contract: sorted sites, stride 1, ordinary
+        if native.available():
+            o_rows, o_cols, gather = native.conv_plan(
+                rows, cols, hw_in[0], w_in, kh, kw, ph, pw)
+            return o_rows, o_cols, gather, (h_out, w_out)
+        _backend.count_host_fallback("conv_plan")
     order = np.argsort(lin_in, kind="stable").astype(np.int32)
     lin_sorted = lin_in[order]
 

@@ -30,6 +30,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from deeppreconditioning_tpu_torch import _backend, native
 from deeppreconditioning_tpu_torch.sparse.ell import csr_to_ell_arrays
 
 
@@ -38,9 +39,15 @@ def _round_up(n: int, m: int) -> int:
 
 
 def compute_levels(l_csr: sp.csr_matrix) -> np.ndarray:
-    """level[i] = longest dependency chain ending at row i (host)."""
+    """level[i] = longest dependency chain ending at row i (host:
+    ``native.levels`` when the host runtime is available, else the numpy
+    loop, counted as its fallback)."""
     n = l_csr.shape[0]
     indptr, indices = l_csr.indptr, l_csr.indices
+    if native.available() and n:
+        return native.levels(indptr, indices)
+    if n:
+        _backend.count_host_fallback("levels")
     levels = np.zeros(n, np.int32)
     for i in range(n):
         deps = indices[indptr[i]:indptr[i + 1]]

@@ -15,8 +15,8 @@ polynomial degree and pattern power; a conv model takes ``params.yaml``'s
 is read from ``data_root``'s ``<family>/case_*`` folders when there are
 any; otherwise the sludge-pattern cases are generated in process from
 seed 69420, as bench.py does.  Techniques default to vanilla, jacobi,
-incomplete_cholesky and learned; ``all`` names the reference's eight,
-and the suite refuses the one not ported (incomplete_lu).
+incomplete_cholesky and learned; ``all`` runs the reference's eight
+(``bench.suite.ALL_TECHNIQUES``: bench.py's seven and incomplete_lu).
 
 Writes ``table.csv``, ``totals.csv`` and ``eigenvalues.csv`` under
 ``assets/results/torch/`` (or ``--results-dir``) and prints one summary
@@ -33,6 +33,7 @@ import torch
 
 from deeppreconditioning_tpu_torch import _backend
 from deeppreconditioning_tpu_torch.bench.suite import (
+    ALL_TECHNIQUES,
     RESULTS_DIRECTORY,
     BenchmarkSuite,
 )
@@ -50,9 +51,6 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
 
 REPO = Path(__file__).resolve().parents[1]
-ALL_TECHNIQUES = ("vanilla", "jacobi", "incomplete_cholesky",
-                  "incomplete_cholesky_neumann", "incomplete_lu",
-                  "algebraic_multigrid", "fsai", "learned")
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -77,3 +77,47 @@ def test_jacobi_preconditioner_matches_jax():
     a = MATRICES["sludge_0"]
     np.testing.assert_array_equal(ic0.jacobi_preconditioner(a),
                                   jax_ic0.jacobi_preconditioner(a))
+
+
+ICT_CASES = {f"sludge_{seed}": generate_sludge_case(
+    np.random.default_rng(seed), mesh_cells=1).matrix.tocsr()
+    for seed in (0, 5)}
+ICT_CASES["random_spd"] = MATRICES["random_spd"]
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+@pytest.mark.parametrize("name", sorted(ICT_CASES))
+@pytest.mark.parametrize("fill,threshold", [(1, 0.1), (3, 0.01)])
+def test_ict_factor_matches_jax_on_the_same_route(name, route, fill,
+                                                  threshold, monkeypatch):
+    """ICT's two routes are different algorithms (sparse left-looking in
+    the host runtime, dense left-looking in numpy), each held to the
+    reference's same route."""
+    from deeppreconditioning_tpu_torch import native
+
+    if route == "native" and not jax_native.available():
+        pytest.skip("the reference's native/libdptpu.so does not load")
+    if route == "numpy":
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+        monkeypatch.setattr(native, "available", lambda: False)
+    a = ICT_CASES[name]
+    ours = ic0.ict_factor(a.copy(), add_fill_in=fill, threshold=threshold)
+    ref = jax_ic0.ict_factor(a.copy(), add_fill_in=fill,
+                             threshold=threshold)
+    ours.sort_indices()
+    ref.sort_indices()
+    np.testing.assert_array_equal(ours.indptr, ref.indptr)
+    np.testing.assert_array_equal(ours.indices, ref.indices)
+    np.testing.assert_allclose(ours.data, ref.data, rtol=1e-12, atol=0)
+    # a valid factor: lower triangular with a positive diagonal
+    assert sp.triu(ours, 1).nnz == 0
+    assert (ours.diagonal() > 0).all()
+
+
+def test_materialize_normal_matches_jax():
+    lf = ic0.ic0_factor(MATRICES["sludge_0"])
+    ours = ic0.materialize_normal(lf)
+    ref = jax_ic0.materialize_normal(lf)
+    np.testing.assert_allclose(ours.toarray(), ref.toarray(), rtol=1e-14)
+    np.testing.assert_allclose(ours.toarray(), (lf @ lf.T).toarray(),
+                               rtol=1e-14)

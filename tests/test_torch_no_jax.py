@@ -1,7 +1,9 @@
 """The PyTorch port imports no JAX, Flax, msgpack or YAML: every module of the
 package (and ``chip_smoke.py``) imports in a subprocess where those
 modules cannot be imported, the conv train stage's and the structured
-trainer's and scaling protocol's names included."""
+trainer's and scaling protocol's names included, and the host runtime it
+builds and loads there is its own (nothing under ``native/`` or
+``deeppreconditioning_tpu/`` among the loaded shared objects)."""
 
 import subprocess
 import sys
@@ -51,7 +53,18 @@ from deeppreconditioning_tpu_torch.solvers.cg import (
     pcg_with_history)
 from deeppreconditioning_tpu_torch.bench.large_solve import large_solve
 from deeppreconditioning_tpu_torch.bench.scaling import (
-    crossover_k, rhs_sequence, scaling_problem)
+    amg_setup, crossover_k, next_unique, rhs_sequence, scaling_problem)
+from deeppreconditioning_tpu_torch.ops.ic0 import (
+    ict_factor, materialize_normal)
+from deeppreconditioning_tpu_torch import native
+assert pkg.__name__ + ".native" in sys.modules
+assert native.available()  # builds and loads the host runtime
+from pathlib import Path
+repo = Path(pkg.__file__).resolve().parents[1]
+maps = open("/proc/self/maps").read()
+for banned in (repo / "native", repo / "deeppreconditioning_tpu"):
+    assert str(banned) + "/" not in maps, banned
+assert str(repo / "build" / "torch_host") + "/" in maps
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "flax", "yaml", "deeppreconditioning_tpu")
        and sys.modules[m] is not None]

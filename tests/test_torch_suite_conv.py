@@ -30,6 +30,7 @@ from deeppreconditioning_tpu.train.trainer import (
 )
 from deeppreconditioning_tpu_torch import test as test_entry
 from deeppreconditioning_tpu_torch.bench.suite import (
+    ALL_TECHNIQUES,
     TABLE_PARAMETERS,
     BenchmarkSuite,
 )
@@ -152,9 +153,18 @@ def test_entry_point_on_cpu(tmp_path, cases, monkeypatch):
     assert (fsai.learned_power, fsai.fsai_power) == (3, 3)
     assert fsai.data_set.specs is None and fsai.model.width == 24
 
+    # 'all' runs the reference's eight; the guard refuses an unknown name
+    every = test_entry.run(test_entry.parse_args(
+        argv[:6] + ["--techniques", "all", "--kappa-cases", "0",
+                    "--timing-reps", "1", "--results-dir",
+                    str(tmp_path / "all")]), cases=cases)
+    assert every.techniques == ALL_TECHNIQUES
+    assert all(every.successes[name] == [100.0] * 2
+               for name in every.techniques)
     with pytest.raises(ValueError, match="techniques not ported"):
         test_entry.run(test_entry.parse_args(
-            argv[:6] + ["--techniques", "all"]), cases=cases)
+            argv[:6] + ["--techniques", "vanilla,no_such_technique"]),
+            cases=cases)
     with pytest.raises(ValueError, match="not a conv model"):
         conv_model_from_checkpoint("NeuralFSAI", {})
     with pytest.raises(ValueError, match="no PreconditionerNet param"):
