@@ -80,10 +80,11 @@ def irregular_suite(device, results_directory: Path = RESULTS,
 
 
 def run(device: torch.device, results_directory: Path = RESULTS,
-        timing_reps: int = TIMING_REPS) -> BenchmarkSuite:
-    """Build the irregular split and the learned model, run the suite,
-    return it."""
-    suite = irregular_suite(device, results_directory, timing_reps=timing_reps)
+        timing_reps: int = TIMING_REPS, cases=None) -> BenchmarkSuite:
+    """Build the irregular split (of ``cases``, if the caller has them)
+    and the learned model, run the suite, return it."""
+    suite = irregular_suite(device, results_directory, cases=cases,
+                            timing_reps=timing_reps)
     suite.run()
     return suite
 

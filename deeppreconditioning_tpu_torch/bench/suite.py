@@ -40,9 +40,13 @@ setup over all cases and one fixed-trip PCG over the stacked dense scaled
 systems (``_scaled_dense_matvec``), for vanilla, jacobi,
 incomplete_cholesky_neumann (M = G^T G densified on the card),
 algebraic_multigrid (the V-cycle composed densely), fsai (dense M) and
-learned (the factor in band form, ``ops/banded_factor``).  fsai and
-learned group the cases by plan kind; each group's local solves are one
-B1 launch.  Each technique tries a bf16 M (or bf16 bands) first and falls
+learned.  The learned M takes the reference's two routes
+(``batched_learned_apply``): the factor in band form
+(``ops/banded_factor``) while the split's band spread fits
+``banded_spread_cap``, else the dense M from the group forward and the
+polynomial wrap (the irregular split's permuted cases).  fsai and learned
+group the cases by plan kind; each group's local solves are one B1
+launch.  Each technique tries a bf16 M (or bf16 bands) first and falls
 back to float32 unless every case converges; its trips are the warm-up
 solve's slowest case + 2, and the counts come from the fixed-trip run.
 A bf16 M is kept as its bf16-rounded values in float32 and multiplied
@@ -50,8 +54,9 @@ with the bf16-rounded vector, which gives the reference's float32 sum of
 bf16 products.  Timing: the setup median of ``setup_reps`` builds after
 the warm-up build (the solve uses that one), one build for the
 host-bound ones (``HOST_BOUND_TECHNIQUES``); the
-solve median of ``reps`` fixed-trip runs.  Not here: the reference's
-dense batched learned path (taken only past ``BANDED_SPREAD_CAP``).  As in
+solve median of ``reps`` fixed-trip runs.  The dense learned build's
+polynomial wrap runs on bf16 inputs with float32 sums on the bf16 attempt
+and in full float32 on the float32 retry, so the retry rebuilds M.  As in
 the reference, the batched learned technique takes NeuralFSAI only.
 """
 
@@ -101,6 +106,7 @@ from deeppreconditioning_tpu_torch.ops.fsai import (
     fsai_dense_preconditioner_range,
     pattern_col_width,
     range_strips_uniform,
+    round_bf16,
     stack_plans,
     strips_to_bands,
     take_cases,
@@ -150,10 +156,6 @@ HOST_BOUND_TECHNIQUES = frozenset({"incomplete_cholesky",
                                    "algebraic_multigrid"})
 TABLE_PARAMETERS = ["kappas", "densities", "iterations", "setups",
                     "durations", "totals", "successes"]
-# the batched learned apply keeps the factor in band form up to this band
-# spread (the reference's banded_spread_cap; past it the reference
-# materializes M, a path not ported)
-BANDED_SPREAD_CAP = 512
 BATCHED_KEYS = ["iterations", "iterations_max", "trips", "setup_batch",
                 "solve_batch", "total_batch", "per_case_total",
                 "per_case_solve", "success", "cases"]
@@ -205,11 +207,6 @@ def _learned_setup_device(model, features, plans, scales, n0: int,
 # -- batched applies and setups ------------------------------------------------
 
 
-def _round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to bf16, kept in x's dtype."""
-    return x.to(torch.bfloat16).to(x.dtype)
-
-
 def _bmv(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(B, n, n) @ (B, n) -> (B, n)."""
     return torch.bmm(m, x[..., None])[..., 0]
@@ -228,7 +225,7 @@ def _scaled_dense_matvec_fast(a_data, r):
     ``a_data`` already rounded to bf16) times the bf16-rounded d_sqrt * r,
     summed in float32 (the reference's single bf16 pass)."""
     a_round, d_sqrt = a_data
-    return d_sqrt * _bmv(a_round, _round_bf16(d_sqrt * r))
+    return d_sqrt * _bmv(a_round, round_bf16(d_sqrt * r))
 
 
 def _dense_apply_batched(m, r):
@@ -239,7 +236,7 @@ def _dense_apply_batched(m, r):
 def _dense_apply_batched_bf16(m, r):
     """z = M r for a bf16 M (held as its rounded values): the products
     of bf16 M and bf16 r, exact in float32, summed in float32."""
-    return _bmv(m, _round_bf16(r))
+    return _bmv(m, round_bf16(r))
 
 
 def _jacobi_setup_batched(d_sqrt, n0s):
@@ -352,6 +349,9 @@ class BenchmarkSuite:
             ``PreconditionerSparseUNet`` (needed for 'learned'); moved to
             ``device`` and ``dtype``.
         learned_apply: a conv model's apply, ``"dense"`` or ``"factor"``.
+        batched_learned_apply: the batched learned route, ``"banded"``,
+            ``"dense"`` or ``"auto"`` (band form while the split's band
+            spread is at most ``banded_spread_cap``, as the reference).
         device: defaults to the card (``_backend.device()``, which raises
             without one); the CPU tests pass ``"cpu"``.
     """
@@ -360,6 +360,8 @@ class BenchmarkSuite:
     model: torch.nn.Module | None = None
     techniques: tuple = TECHNIQUES
     learned_apply: str = "dense"
+    batched_learned_apply: str = "auto"
+    banded_spread_cap: int = 512  # the band form's widest spread in "auto"
     max_iter: int = 1024
     rtol: float = 1e-8
     dtype: torch.dtype = torch.float32
@@ -385,6 +387,9 @@ class BenchmarkSuite:
     batched_builds: dict = field(default_factory=dict)  # batched setups run
     batched_launch_groups: dict = field(default_factory=dict)  # B1 launches
     # per batched build: the chunks of every plan group
+    batched_routes: dict = field(default_factory=dict)  # the learned
+    # route taken ("banded" / "dense") and the split's band spread (None
+    # where "dense" is forced)
 
     _BATCHED_CHECK_EVERY = {
         "vanilla": 32, "jacobi": 32,
@@ -400,6 +405,9 @@ class BenchmarkSuite:
         self.device = torch.device(self.device)
         if self.learned_apply not in ("dense", "factor"):
             raise ValueError(f"learned_apply {self.learned_apply!r}")
+        if self.batched_learned_apply not in ("auto", "banded", "dense"):
+            raise ValueError(
+                f"batched_learned_apply {self.batched_learned_apply!r}")
         if "learned" in self.techniques:
             if not isinstance(self.model, (NeuralFSAI, *CONV_MODELS)):
                 raise ValueError("'learned' needs a NeuralFSAI or conv model")
@@ -945,8 +953,9 @@ class BenchmarkSuite:
 
     def _batched_setup(self, name, setup_reps, chunk, m_dtype=None):
         """One technique's batched ``(apply_fn, m_data, setup_seconds)``.
-        ``m_dtype`` torch.bfloat16 rounds a dense M (fsai, AMG) or the
-        learned bands to bf16 as the last step of the timed build."""
+        ``m_dtype`` torch.bfloat16 rounds a dense M (fsai, AMG, dense
+        learned) or the learned bands to bf16 as the last step of the
+        timed build."""
         common = self._batched_common()
         n_pad = common["n_pad"]
         groups = None
@@ -1022,24 +1031,38 @@ class BenchmarkSuite:
                                  "per-case protocol)")
             power = self.learned_power or self.fsai_power
             groups = self._batched_fsai_inputs(power, self.model.width)
-            spread = max(band_spread(p.out_rows.cpu().numpy(), n_pad)
-                         for _, p, _, _ in groups)
-            if spread > BANDED_SPREAD_CAP:
-                raise NotImplementedError(
-                    f"band spread {spread} > {BANDED_SPREAD_CAP}: the dense "
-                    "batched learned path is not ported")
-            return self._banded_learned_setup(groups, spread, setup_reps,
-                                              chunk, m_dtype)
+            spread = None
+            if self.batched_learned_apply != "dense":
+                spread = max(band_spread(p.out_rows.cpu().numpy(), n_pad)
+                             for _, p, _, _ in groups)
+                if (self.batched_learned_apply == "banded"
+                        or spread <= self.banded_spread_cap):
+                    self.batched_routes[name] = ("banded", spread)
+                    return self._banded_learned_setup(
+                        groups, spread, setup_reps, chunk, m_dtype)
+            self.batched_routes[name] = ("dense", spread)
+            # the bf16 attempt's products on bf16 inputs; the float32
+            # retry rebuilds M with float32 products
+            precision = "bf16" if m_dtype == torch.bfloat16 else None
+
+            def build():
+                return self._dense_m_from_groups(
+                    groups, chunk,
+                    lambda p, o, s, n0: neural_fsai_dense_preconditioner(
+                        self.model, p, o, s, n0, dtype=self.dtype,
+                        precision=precision))
+            apply_fn = _dense_apply_batched
         else:
             raise ValueError(f"technique {name} has no batched protocol")
 
-        # bf16 M: fsai and AMG; the Neumann G^T G spans too wide a range
+        # bf16 M: fsai, dense learned and AMG; the Neumann G^T G spans too
+        # wide a range
         if m_dtype is not None and apply_fn is _dense_apply_batched and (
                 name != "incomplete_cholesky_neumann"):
             inner_build = build
 
             def build():
-                return _round_bf16(inner_build())
+                return round_bf16(inner_build())
             apply_fn = _dense_apply_batched_bf16
         return (apply_fn, *self._time_build(name, build, groups, chunk,
                                             setup_reps))
@@ -1087,7 +1110,7 @@ class BenchmarkSuite:
             if m_dtype is None:
                 return bands, qs, a_data
             return (bands.to(m_dtype), qs,
-                    (_round_bf16(common["a_tilde"]), common["d_sqrt"]))
+                    (round_bf16(common["a_tilde"]), common["d_sqrt"]))
 
         apply_fn = make_banded_poly_apply(
             _scaled_dense_matvec_fast if m_dtype is not None

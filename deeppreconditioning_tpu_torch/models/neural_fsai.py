@@ -26,6 +26,10 @@ reference's ``batched_apply_fsai(model, params, plans, operands)`` is
 ``ops/fsai.stack_plans``.  A generic plan's local blocks are always looked up in
 the value vector, the reference's ``gather="lookup"`` form (its default
 gather from the dense matrix gives the same values).
+``neural_fsai_case_setup`` is the one-off deployed setup of a raw scipy
+system (``compare_meshes``), split into its input preparation (the host
+plan, moved to the device: ``neural_fsai_case_plan``) and the setup proper
+(``neural_fsai_case_m``) so that a caller can time the latter alone.
 
 The parameters enter after the local solves, so the solves carry no
 gradient to the parameters, in the reference as here: when the operand
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from deeppreconditioning_tpu_torch import _backend
 from deeppreconditioning_tpu_torch.ops.fsai import (
     FSAIPlan,
     RangeFSAIPlan,
@@ -59,6 +64,7 @@ from deeppreconditioning_tpu_torch.ops.fsai import (
     range_strips,
     stack_plans,
     tril_power_pattern,
+    tril_power_pattern_capped,
 )
 
 LAYERS = ("alpha", "beta", "dense0", "dense1")  # Flax's (sorted) names
@@ -211,13 +217,16 @@ def neural_fsai_dense_preconditioner(
     plan,
     operand: torch.Tensor,
     scales: torch.Tensor,
-    n0: int,
+    n0,
     dtype=torch.float32,
+    precision=None,
 ) -> torch.Tensor:
-    """Deployed single-case setup: model forward -> dense effective
-    preconditioner on the RAW system (Jacobi scaling folded, padding
-    masked); assembled in Gram form from strips on a range plan, through
-    the dense factor on a generic plan."""
+    """Deployed setup: model forward -> dense effective preconditioner on
+    the RAW system (Jacobi scaling folded, padding masked); assembled in
+    Gram form from strips on a range plan, through the dense factor on a
+    generic plan.  One case, or a group plan with stacked operands,
+    scales and one ``n0`` per case (the forward is then one B1 launch).
+    ``precision`` is the polynomial wrap's (``ops/fsai._matmul``)."""
     operand = operand.to(dtype)
     out = model(plan, operand)
     d_isqrt = 1.0 / torch.sqrt(scales.to(dtype))
@@ -225,13 +234,98 @@ def neural_fsai_dense_preconditioner(
         return poly_preconditioner_dense(
             fsai_dense_factor(plan, out.c_vals),
             fsai_dense_from_l0(plan, operand), out.q_coeffs,
-            d_isqrt=d_isqrt, n0=n0,
+            d_isqrt=d_isqrt, n0=n0, precision=precision,
         )
     strips = range_strips(plan, out.c_vals)
     s_eff = range_m_from_strips(plan, strips, d_isqrt=d_isqrt, n0=n0)
     d_sqrt = torch.sqrt(scales.to(dtype))
-    a_raw = d_sqrt[:, None] * operand * d_sqrt[None, :]
-    return poly_preconditioner_from_gram(s_eff, a_raw, out.q_coeffs)
+    a_raw = d_sqrt[..., :, None] * operand * d_sqrt[..., None, :]
+    return poly_preconditioner_from_gram(s_eff, a_raw, out.q_coeffs,
+                                         precision=precision)
+
+
+class CasePlan(NamedTuple):
+    """Input of the one-off deployed setup for one raw system, on the
+    device (``neural_fsai_case_plan``)."""
+
+    plan: FSAIPlan  # generic plan at the model's width
+    l0_vals: torch.Tensor  # (nnz + n_pad - n,) scaled tril values
+    scales: torch.Tensor  # (n_pad,) diag(A), 1 on the padding
+    n: int
+    n_pad: int
+
+
+def scaled_tril(a_csr):
+    """The Jacobi-scaled tril of a raw scipy system, sorted by (row,
+    col): ``(rows, cols, vals, diag)`` with int32 indices, the values of
+    D^-1/2 A D^-1/2 and diag(A)."""
+    a = a_csr.tocsr()
+    coo = a.tocoo()
+    keep = coo.row >= coo.col
+    rows, cols = coo.row[keep], coo.col[keep]
+    diag = a.diagonal()
+    d_isqrt = 1.0 / np.sqrt(diag)
+    vals = coo.data[keep] * d_isqrt[rows] * d_isqrt[cols]
+    order = np.argsort(rows.astype(np.int64) * a.shape[0] + cols)
+    return (rows[order].astype(np.int32), cols[order].astype(np.int32),
+            vals[order], diag)
+
+
+def neural_fsai_case_plan(a_csr, power: int, width: int,
+                          dtype=torch.float32, device=None) -> CasePlan:
+    """Input preparation of the one-off deployed setup, as the reference's
+    ``neural_fsai_case_setup`` does it on the host: Jacobi-scale the raw
+    system, keep its tril sorted by (row, col) with a unit diagonal on the
+    padding up to ``n_pad`` (a multiple of 128), take tril(|A|^power),
+    capped to the ``width`` strongest couplings per column when wider,
+    build the generic plan; then move it and the values to ``device``
+    (the card unless the caller passes the CPU) in ``dtype``."""
+    device = _backend.device() if device is None else torch.device(device)
+    rows, cols, vals, diag = scaled_tril(a_csr)
+    n = a_csr.shape[0]
+    n_pad = ((n + 127) // 128) * 128
+    # the padding's rows follow every real one: the order stays sorted
+    pad_ids = np.arange(n, n_pad, dtype=np.int32)
+    l0_rows = np.concatenate([rows, pad_ids])
+    l0_cols = np.concatenate([cols, pad_ids])
+    l0_vals = np.concatenate([vals, np.ones(n_pad - n)])
+    pr, pc = tril_power_pattern(l0_rows, l0_cols, n_pad, power=power)
+    if pattern_col_width(pr, pc) > width:
+        pr, pc = tril_power_pattern_capped(l0_rows, l0_cols, l0_vals, n_pad,
+                                           power=power, width=width)
+    plan = build_fsai_plan(l0_rows, l0_cols, pr, pc, n_pad, width=width)
+    scales = np.ones(n_pad)
+    scales[:n] = diag
+
+    def t(x):
+        return torch.as_tensor(x, device=device).to(dtype)
+
+    return CasePlan(plan.to(device), t(l0_vals), t(scales), n, n_pad)
+
+
+def neural_fsai_case_m(model: NeuralFSAI, case: CasePlan) -> torch.Tensor:
+    """The one-off deployed setup proper, on the case's device and dtype:
+    ``neural_fsai_dense_preconditioner`` on its generic plan (one B1
+    launch) at full precision, rows and columns >= n masked: the
+    (n_pad, n_pad) M for the RAW system.  ``model`` is moved to that
+    device and dtype (in place, as the suite does)."""
+    operand = case.l0_vals
+    model = model.to(device=operand.device, dtype=operand.dtype)
+    with torch.no_grad():
+        return neural_fsai_dense_preconditioner(
+            model, case.plan, operand, case.scales, case.n,
+            dtype=operand.dtype)
+
+
+def neural_fsai_case_setup(model: NeuralFSAI, a_csr, power: int,
+                           dtype=torch.float32, device=None):
+    """The one-off deployed setup of a raw scipy system (the reference's
+    ``neural_fsai_case_setup``, the shared path of ``compare_meshes`` and
+    ``residual_parity``): ``neural_fsai_case_plan``, then
+    ``neural_fsai_case_m`` on ``device`` (the card unless the caller
+    passes the CPU).  Returns ``(m, n_pad)``."""
+    case = neural_fsai_case_plan(a_csr, power, model.width, dtype, device)
+    return neural_fsai_case_m(model, case), case.n_pad
 
 
 # -- batches of plans (the training path) -------------------------------------

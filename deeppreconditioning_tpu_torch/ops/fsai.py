@@ -23,7 +23,11 @@ Device half, two paths that share the local solves (kernel B1 through
   and M = C C^T, or the polynomial wrap on C with the dense scaled matrix
   (``fsai_dense_from_l0``).
 Gathers are plain indexing here; the reference's one-hot matmuls were a
-TPU stand-in for them.
+TPU stand-in for them (``range_dense_factor`` keeps its one-hot placement
+as a reference).  The polynomial wraps take the reference's ``precision``:
+full float32 products, or ``"bf16"`` inputs with float32 sums (the batched
+protocol's bf16 attempt).  ``fsai_factor_scipy`` is the float64 host
+factor, column by column.
 """
 
 from __future__ import annotations
@@ -446,12 +450,13 @@ def _fsai_solve_columns(plan, sub: torch.Tensor, with_aux: bool = False):
 
 def fsai_dense_from_l0(plan: FSAIPlan, l0_vals: torch.Tensor) -> torch.Tensor:
     """Dense symmetric scaled matrix A~ from the tril value vector (the
-    padded tail lands in a dropped row n_pad)."""
+    padded tail lands in a dropped row n_pad); one case or a group."""
     n_pad = plan.n_pad
-    a = l0_vals.new_zeros((n_pad + 1, n_pad))
-    a.index_put_((plan.l0_rows, plan.l0_cols), l0_vals, accumulate=True)
-    a = a[:n_pad]
-    return a + torch.tril(a, -1).T
+    flat = plan.l0_rows * n_pad + plan.l0_cols
+    a = l0_vals.new_zeros(*l0_vals.shape[:-1], (n_pad + 1) * n_pad)
+    a.scatter_add_(-1, flat, l0_vals)
+    a = a[..., :n_pad * n_pad].reshape(*l0_vals.shape[:-1], n_pad, n_pad)
+    return a + torch.tril(a, -1).mT
 
 
 def fsai_values_lookup(plan: FSAIPlan, l0_vals: torch.Tensor,
@@ -461,11 +466,19 @@ def fsai_values_lookup(plan: FSAIPlan, l0_vals: torch.Tensor,
     A~[S_j, S_j] are looked up in the value vector through the plan's
     ``sub_idx`` (O(n_pad w^2) memory, no dense matrix).  Takes a group
     plan with one value vector per case."""
+    return _fsai_solve_columns(plan, lookup_local_blocks(plan, l0_vals),
+                               with_aux)
+
+
+def lookup_local_blocks(plan: FSAIPlan,
+                        l0_vals: torch.Tensor) -> torch.Tensor:
+    """The (..., n_pad, w, w) local blocks A~[S_j, S_j] of the generic
+    path, looked up in the value vector through ``sub_idx`` (its sentinel
+    reads 0); one case or a group."""
     vals_ext = torch.cat([l0_vals, l0_vals.new_zeros(*l0_vals.shape[:-1], 1)],
                          dim=-1)
     idx = plan.sub_idx.clamp(max=vals_ext.shape[-1] - 1)
-    sub = vals_ext.gather(-1, idx.flatten(-3)).reshape(idx.shape)
-    return _fsai_solve_columns(plan, sub, with_aux)
+    return vals_ext.gather(-1, idx.flatten(-3)).reshape(idx.shape)
 
 
 def fsai_dense_factor(plan: FSAIPlan, c_vals: torch.Tensor,
@@ -666,12 +679,32 @@ def strips_to_bands(strips_u: torch.Tensor, jb: int,
     return x.movedim(-1, -3).reshape(*lead, d_max, b * jb)
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16, kept in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _matmul(precision):
+    """The reference's products at ``precision``: None, full precision in
+    the operands' dtype (TF32 off on the card); ``"bf16"``, bf16 inputs
+    with float32 accumulation.  ``torch.matmul`` on bf16 tensors would
+    round its output to bf16, so each operand is rounded to bf16 and
+    multiplied in its own dtype: a product of two bf16 values is exact in
+    float32, and only the order of the sums differs from XLA's."""
+    if precision is None:
+        return torch.matmul
+    if precision == "bf16":
+        return lambda x, y: round_bf16(x) @ round_bf16(y)
+    raise ValueError(f"precision {precision!r}: None or 'bf16'")
+
+
 def poly_preconditioner_dense(
     c_dense: torch.Tensor,  # (..., n, n) scaled-space factor C~
     a_dense: torch.Tensor,  # (..., n, n) scaled symmetric A~
     q_coeffs: torch.Tensor,  # (..., d+1) coefficients of q
     d_isqrt: torch.Tensor | None = None,
     n0=None,
+    precision=None,
 ) -> torch.Tensor:
     """Polynomial-wrapped FSAI, materialized dense:
 
@@ -680,17 +713,18 @@ def poly_preconditioner_dense(
     (SPD for any q; q = I gives C C^T), q evaluated by Horner, then the
     Jacobi scaling folded (D^-1/2 M~ D^-1/2) and rows and columns >= n0
     masked.  One case or a batch (leading axes on every operand, ``n0``
-    one per case).  Full float32 products on the card (TF32 off)."""
+    one per case).  Every product at ``precision`` (``_matmul``)."""
     dtype = c_dense.dtype
     n = c_dense.shape[-1]
+    mm = _matmul(precision)
     q_coeffs = q_coeffs.to(dtype)[..., None, None]
-    bmat = c_dense.mT @ (a_dense.to(dtype) @ c_dense)
+    bmat = mm(c_dense.mT, mm(a_dense.to(dtype), c_dense))
     eye = torch.eye(n, dtype=dtype, device=c_dense.device)
     q = eye * q_coeffs[..., -1, :, :]
     for i in range(q_coeffs.shape[-3] - 2, -1, -1):
-        q = q @ bmat + q_coeffs[..., i, :, :] * eye
-    cq = c_dense @ q
-    m = cq @ cq.mT
+        q = mm(q, bmat) + q_coeffs[..., i, :, :] * eye
+    cq = mm(c_dense, q)
+    m = mm(cq, cq.mT)
     if d_isqrt is not None:
         d = d_isqrt.to(dtype)
         m = d[..., :, None] * m * d[..., None, :]
@@ -701,25 +735,97 @@ def poly_preconditioner_dense(
 
 
 def poly_preconditioner_from_gram(
-    s_eff: torch.Tensor,  # (n, n) effective Gram S = C_eff C_eff^T
-    a_raw: torch.Tensor,  # (n, n) dense RAW symmetric A
-    q_coeffs: torch.Tensor,  # (d+1,) coefficients of q
+    s_eff: torch.Tensor,  # (..., n, n) effective Gram S = C_eff C_eff^T
+    a_raw: torch.Tensor,  # (..., n, n) dense RAW symmetric A
+    q_coeffs: torch.Tensor,  # (..., d+1) coefficients of q
+    precision=None,
 ) -> torch.Tensor:
     """Polynomial-wrapped FSAI in Gram form:
 
         M = C q(B) q(B)^T C^T = sum_k r_k (S A)^k S,  r = q * q,
 
-    with r the true convolution r_k = sum_i q_i q_{k-i}, evaluated by
-    Horner in T = S A with the S-folded accumulator, then symmetrized."""
+    with r the true convolution r_k = sum_i q_i q_{k-i} (per case), then
+    Horner in T = S A with the S-folded accumulator, then symmetrized.
+    One case or a group (leading axes, each case its own q).  With
+    ``precision="bf16"`` the operands of each product are rounded as the
+    reference rounds them (S and A for T, then T and the accumulator),
+    while each ``r_k S`` term is added unrounded."""
     dtype = s_eff.dtype
     q = q_coeffs.to(dtype)
-    d = q.shape[0] - 1
+    d = q.shape[-1] - 1
     r = torch.stack([
-        sum(q[i] * q[k - i] for i in range(max(0, k - d), min(k, d) + 1))
+        sum(q[..., i] * q[..., k - i]
+            for i in range(max(0, k - d), min(k, d) + 1))
         for k in range(2 * d + 1)
-    ])
-    t = s_eff @ a_raw.to(dtype)
-    p = s_eff * r[-1]
-    for i in range(r.shape[0] - 2, -1, -1):
-        p = t @ p + r[i] * s_eff
-    return 0.5 * (p + p.T)
+    ], dim=-1)[..., None, None]
+    mm = _matmul(precision)
+    t = mm(s_eff, a_raw.to(dtype))
+    p = s_eff * r[..., -1, :, :]
+    for i in range(r.shape[-3] - 2, -1, -1):
+        p = mm(t, p) + r[..., i, :, :] * s_eff
+    return 0.5 * (p + p.mT)
+
+
+# -- the reference's other forms (tests, one-off scripts) ---------------------
+
+
+def fsai_values_range(plan: RangeFSAIPlan, a_dense: torch.Tensor
+                      ) -> torch.Tensor:
+    """Column values of C from the range-blocked plan: the reference's
+    alias of ``range_fsai_columns``."""
+    return range_fsai_columns(plan, a_dense)
+
+
+def range_dense_factor(plan: RangeFSAIPlan, c_vals: torch.Tensor,
+                       d_isqrt: torch.Tensor | None = None,
+                       n0=None) -> torch.Tensor:
+    """Dense lower-triangular C from range-blocked column values by the
+    reference's one-hot placement: strips[j, h] = sum_k c[j, k] O[j, h, k]
+    with O[j, h, k] = [local[j, k] == h], then block b's strip placed at
+    rows lo_b.. by P[b, n, h] = [n == lo_b + h]; optionally the Jacobi
+    scaling folded into the rows and rows and columns >= n0 masked.  One
+    case; ``range_dense_factor_slabs`` is the scatter form the port
+    runs."""
+    n_pad, h, jb = plan.n_pad, plan.h, plan.block_cols
+    b = n_pad // jb
+    dtype, device = c_vals.dtype, c_vals.device
+    one_hot = (plan.local[:, None, :] == torch.arange(
+        h, device=device)[None, :, None]).to(dtype)  # (n_pad, H, w)
+    strips = torch.einsum("jk,jhk->jh", c_vals, one_hot).reshape(b, jb, h)
+    iota_n = torch.arange(n_pad, device=device)[None, :, None]
+    iota_h = torch.arange(h, device=device)[None, None, :]
+    p = (iota_n == plan.lo[:, None, None] + iota_h).to(dtype)
+    c_cols = torch.einsum("bnh,bjh->bnj", p, strips)  # (B, n, JB)
+    c = c_cols.movedim(0, 1).reshape(n_pad, n_pad)
+    if d_isqrt is not None:
+        c = d_isqrt[:, None] * c
+    if n0 is not None:
+        mask = torch.arange(n_pad, device=device) < n0
+        c = torch.where(mask[:, None] & mask[None, :], c, 0.0)
+    return c
+
+
+def fsai_factor_scipy(a: sp.spmatrix, pat_rows: np.ndarray,
+                      pat_cols: np.ndarray) -> sp.csc_matrix:
+    """Host FSAI factor in float64, column by column: the dense local
+    solve A[S_j, S_j] y = e_pos(j) with S_j = {i >= j in the pattern}
+    plus j, then c_j = y / sqrt(max(y_pos, 1e-30)).  The oracle of
+    ``scripts/residual_parity.py``."""
+    n = a.shape[0]
+    ad = sp.csr_matrix(a).toarray()
+    pat = sp.csc_matrix(
+        (np.ones(pat_rows.shape[0]), (pat_rows, pat_cols)), shape=(n, n))
+    rows_o, cols_o, vals_o = [], [], []
+    for j in range(n):
+        s = pat.indices[pat.indptr[j]:pat.indptr[j + 1]]
+        s = np.unique(np.append(s[s >= j], j))
+        p = int(np.searchsorted(s, j))
+        e = np.zeros(len(s))
+        e[p] = 1.0
+        y = np.linalg.solve(ad[np.ix_(s, s)], e)
+        rows_o.append(s)
+        cols_o.append(np.full(len(s), j))
+        vals_o.append(y / np.sqrt(max(y[p], 1e-30)))
+    return sp.csc_matrix(
+        (np.concatenate(vals_o),
+         (np.concatenate(rows_o), np.concatenate(cols_o))), shape=(n, n))

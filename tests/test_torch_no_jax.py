@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX, Flax, msgpack or YAML: every module of the
 package (and ``chip_smoke.py``) imports in a subprocess where those
 modules cannot be imported, the conv train stage's and the structured
-trainer's and scaling protocol's names included, and the host runtime it
+trainer's and scaling protocol's names, the batched probe, the mesh study
+and the one-off deployed setup included, and the host runtime it
 builds and loads there is its own (nothing under ``native/`` or
 ``deeppreconditioning_tpu/`` among the loaded shared objects)."""
 
@@ -30,7 +31,8 @@ for name in ("ops.ic0", "ops.trisolve", "ops.amg", "ops.banded_factor",
              "ops.factor_apply", "models.precond_net", "models.sparse_unet",
              "test", "data.datasets", "train.checkpoint", "config",
              "train.structured", "bench.large_solve", "ops.stencil",
-             "data.poisson", "solvers.cg"):
+             "data.poisson", "solvers.cg", "bench.batched_probe",
+             "compare_meshes"):
     assert pkg.__name__ + "." + name in sys.modules, name
 from deeppreconditioning_tpu_torch.data.datasets import (
     ConvPlans, RandomSPDDataSet, StAnDataSet, download_from_kaggle)
@@ -56,6 +58,12 @@ from deeppreconditioning_tpu_torch.bench.scaling import (
     amg_setup, crossover_k, next_unique, rhs_sequence, scaling_problem)
 from deeppreconditioning_tpu_torch.ops.ic0 import (
     ict_factor, materialize_normal)
+from deeppreconditioning_tpu_torch.models.neural_fsai import (
+    CasePlan, neural_fsai_case_m, neural_fsai_case_plan,
+    neural_fsai_case_setup, neural_fsai_dense_preconditioner, scaled_tril)
+from deeppreconditioning_tpu_torch.ops.fsai import (
+    fsai_factor_scipy, fsai_values_range, lookup_local_blocks,
+    range_dense_factor, round_bf16)
 from deeppreconditioning_tpu_torch import native
 assert pkg.__name__ + ".native" in sys.modules
 assert native.available()  # builds and loads the host runtime
@@ -79,4 +87,4 @@ def test_port_imports_without_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 50
+    assert int(out.stdout.strip().splitlines()[-1]) >= 55

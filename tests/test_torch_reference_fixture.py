@@ -19,10 +19,7 @@ from deeppreconditioning_tpu_torch.bench.frames import (
     SEED,
     frames_suite,
 )
-from deeppreconditioning_tpu_torch.bench.suite import (
-    BANDED_SPREAD_CAP,
-    BenchmarkSuite,
-)
+from deeppreconditioning_tpu_torch.bench.suite import BenchmarkSuite
 from deeppreconditioning_tpu_torch.data.datasets import SludgePatternDataSet
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -149,7 +146,7 @@ def test_batched_fixture_describes_the_port_split(batched_fixture):
     assert bat["techniques"] == list(BenchmarkSuite._BATCHED_CHECK_EVERY)
     assert bat["check_every"] == BenchmarkSuite._BATCHED_CHECK_EVERY
     assert bat["learned_apply"] == "banded"
-    assert bat["learned_d_max"] <= BANDED_SPREAD_CAP
+    assert bat["learned_d_max"] <= suite.banded_spread_cap
     for name in bat["techniques"]:
         iters = bat["iterations"][name]
         assert len(iters) == 100 and bat["success"][name] == 100.0
