@@ -9,7 +9,8 @@ Phases (each raises on failure):
   2. build: compile and load the CUDA kernels from ``csrc/`` (nvcc, one
      process per source, in parallel); print each source's nvcc time and
      ptxas's registers, stack and spills per kernel instance, and fail on
-     any spill in B1's, B2's or B3's instances;
+     any spill in B1's, B2's or B3's instances but B1's float64 ones,
+     whose spills are printed and not refused (SPILL_RECORDED);
   2b. the host runtime (``csrc/host_runtime.cpp``, g++ into
      ``build/torch_host/``): it must build and load (there is no numpy
      run in its place); print its build seconds; on the first flagship
@@ -54,6 +55,11 @@ Phases (each raises on failure):
      operations; B3 on its non-sentinel blocks, at m > 1 against the
      3xTF32 roof with the float32 roof beside it); a kernel-only time above
      its per-call time (by more than 5%) fails;
+  3d. B1's float64 instance against its float64 plain version at w 24, N
+     1024 and 131 072, and w 41, N 131 072, within rtol 1e-10 / atol
+     1e-12, timed as phase 3 with ``torch.linalg.solve_ex`` in float64 and
+     the bound of its float64 bytes (3350 GB/s) or flops (the card's FP64
+     rate outside the tensor cores, ``utils.profiling.fp64_tflop_s``);
   4. the per-case main path through the entry point
      (``python -m deeppreconditioning_tpu_torch.bench``'s ``run``): 500
      sludge-pattern cases from seed 69420, the 100-case test split, the
@@ -255,6 +261,34 @@ Phases (each raises on failure):
      the csv header; each case's setup time and the peak memory printed.
      Then B1 against its plain version on the largest case's local
      systems (w 24, N 2048), timed as in phase 3;
+  4m. the residual-parity report through its entry point (``python -m
+     deeppreconditioning_tpu_torch.residual_parity``'s ``run``): the
+     first 5 sludge cases, five techniques in float64 and float32 (the
+     learned row through B1's float64 instance, w 24), against the JAX
+     CPU fixture (``residual_parity.json``): float64 iterations within 1
+     and each float64 residual curve within rtol 1e-6 over the common
+     prefix, float32 within 2 (vanilla and jacobi max(2, 5%)); B1
+     launched once per learned setup in each dtype, no plain version;
+  4n. the distributed solver on the card in an NCCL group of world size 1
+     (``parallel/``, through ``python -m deeppreconditioning_tpu_torch.
+     scaling_bench``'s setup) at 64^3: the fsai factor's build (B1 once,
+     w 4, N 262 144), then none / jacobi / block_jacobi_ic / fsai in
+     allgather and halo modes, each with the iterations of
+     ``preconditioned_conjugate_gradient`` on one device with the same
+     apply and within the scaling path's bars of the JAX CPU f32 count at
+     one shard (``parallel_iterations.json``); the solve timed (median of
+     3, CUDA events) beside the byte model; no kernel in the solves, no
+     plain version; then B1 on the build's real local systems, timed as
+     in phase 3;
+  4o. the generate stage through its entry point (``python -m
+     deeppreconditioning_tpu_torch.generate_data``'s ``run``), the first
+     50 cases on each assembly route: on numpy every file equal to the
+     JAX package's (``residual_parity.json``'s sha256 digests: the text
+     files, the archive's members); on native (the default) one
+     ``fvm_assemble`` call per case and A within rtol 1e-13 of numpy's;
+     phases 3d, 4m, 4n and 4o print their seconds;
+  Every path before phase 4o runs on the numpy FVM assembly
+  (``data.fvm.numpy_assembly``), the route its JAX fixture was made on;
   (d) on every path, the host runtime's counters read right after it ran:
      no numpy fallback anywhere (``_backend.host_fallback_counts``), and
      native calls on every path that factors, levelizes or plans (per case
@@ -265,7 +299,8 @@ Phases (each raises on failure):
      are submanifold or strided, numpy by design);
   5. the launches per path, the host runtime's calls per path, the card
      line, one JSON line of kernel records
-     (per kernel at its main shape: per-call ``ms``, ``kernel_only_ms``,
+     (per kernel at its main shape, B1's float64 instance as
+     ``gauss_jordan_f64``: per-call ``ms``, ``kernel_only_ms``,
      ``bound_ms``, ``bound_by``, ``library_ms``, ``plain_ms``), and the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -278,6 +313,7 @@ import contextlib
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -295,8 +331,19 @@ from deeppreconditioning_tpu_torch import _backend, native  # noqa: E402
 from deeppreconditioning_tpu_torch.data.fvm import (  # noqa: E402
     DT,
     assemble_pressure_poisson,
+    case_digests,
     generate_sludge_case,
+    numpy_assembly,
 )
+from deeppreconditioning_tpu_torch import generate_data  # noqa: E402
+from deeppreconditioning_tpu_torch import residual_parity  # noqa: E402
+from deeppreconditioning_tpu_torch import scaling_bench  # noqa: E402
+from deeppreconditioning_tpu_torch.parallel import multihost  # noqa: E402
+from deeppreconditioning_tpu_torch.solvers.cg import (  # noqa: E402
+    ell_matvec,
+    preconditioned_conjugate_gradient,
+)
+from deeppreconditioning_tpu_torch.sparse.ell import ELLMatrix  # noqa: E402
 from deeppreconditioning_tpu_torch.ops.ic0 import (  # noqa: E402
     _ic0_inplace,
     ic0_factor,
@@ -397,6 +444,7 @@ from deeppreconditioning_tpu_torch.utils.profiling import (  # noqa: E402
     bsr_work,
     card_peaks,
     dia_work,
+    fp64_tflop_s,
     gauss_jordan_work,
     time_call,
     time_graph,
@@ -416,6 +464,10 @@ PTXAS_FUNCTION = re.compile(
     r"bytes spill stores, (\d+) bytes spill loads\n[^\n]*?Used (\d+) "
     r"registers")
 NO_SPILL_SOURCES = ("gauss_jordan.cu", "dia_spmv.cu", "bsr_spmm.cu")
+# B1's float64 instances (``gauss_jordan_kernel<double, W, T>``): their
+# spills are printed and counted, not refused (its W 64 holds 130 doubles
+# a thread).
+SPILL_RECORDED = re.compile(r"gauss_jordan_kernelId")
 GJ_RTOL, GJ_ATOL = 1e-4, 1e-6
 M_RTOL = 1e-4  # card float32 setup vs CPU float64 setup, relative to max|M|
 # BENCH_r05 per-case mean iterations, measured on a TPU v5e: context only
@@ -556,6 +608,24 @@ TPU_FRAMES_BATCHED_RECORD = {"iterations": 269.425, "success": 97.5}
 # read right after it ran; a path that factors or levelizes needs its
 # entry points called natively, and no path may take a numpy fallback.
 HOST_PATHS: dict = {}
+# B1 float64 (phase 3d), residual parity (4m), the sharded solver (4n),
+# the generate stage (4o).
+GJ64_SHAPES = ((1024, 24), (131072, 24), (131072, 41))  # (N, w)
+GJ64_MAIN_SHAPE = (1024, 24)  # a per-case float64 setup's
+GJ64_RTOL, GJ64_ATOL = 1e-10, 1e-12
+RESIDUAL_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+                    / "residual_parity.json")
+RESIDUAL_CASES = 5
+CURVE_RTOL = 1e-6  # float64 residual curves against the JAX CPU float64
+RESIDUAL_DRIFT = ("vanilla", "jacobi")  # float32: max(2, 5%)
+PARALLEL_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
+                    / "parallel_iterations.json")
+SHARDED_GRID = 64
+SHARDED_MODES = ("allgather", "halo")
+SHARDED_PRECONDS = ("none", "jacobi", "block_jacobi_ic", "fsai")
+SHARDED_REPS = 3
+GENERATE_CASES = 50
+GENERATE_RTOL = 1e-13  # the native assembly's A against the numpy one
 
 
 def card_line() -> str:
@@ -699,26 +769,28 @@ def check_host_runtime(card):
         raise AssertionError("; ".join(failures))
 
 
-def spd_systems(rng, n, w):
+def spd_systems(rng, n, w, dtype=np.float32):
     """Well-conditioned SPD blocks with a unit diagonal (like Jacobi-scaled
-    FSAI local blocks) and one-hot right-hand sides, float32."""
-    g = rng.standard_normal((n, w, w), dtype=np.float32)
-    a = g @ g.transpose(0, 2, 1) / w + np.eye(w, dtype=np.float32)
+    FSAI local blocks) and one-hot right-hand sides, float32 (or
+    ``dtype``)."""
+    g = rng.standard_normal((n, w, w), dtype=dtype)
+    a = g @ g.transpose(0, 2, 1) / w + np.eye(w, dtype=dtype)
     d = 1.0 / np.sqrt(np.einsum("nii->ni", a))
     a = a * d[:, :, None] * d[:, None, :]
-    e = np.zeros((n, w), np.float32)
+    e = np.zeros((n, w), dtype)
     e[np.arange(n), rng.integers(0, w, n)] = 1.0
     return a, e
 
 
 def measure(label, kernel, plain, library, work, dev, card, *,
-            tensor_cores=False):
+            tensor_cores=False, fp64=False):
     """Time one (kernel, shape) three ways in turns, inside this call:
     per call (CUDA events around one call, median of 20: what a path
     pays), kernel only (``time_graph``: launches back to back in a CUDA
     graph), the one PyTorch library call for the same function (per call)
     and the plain version (per call); print
-    them beside the bound of ``work``.  Fails if the kernel-only time
+    them beside the bound of ``work`` (its flops against the float64
+    rate with ``fp64``).  Fails if the kernel-only time
     exceeds the per-call time by more than KERNEL_ONLY_SLACK (the span
     would have measured something else).  Returns the record, in ms."""
     peaks = card_peaks(torch.cuda.get_device_name(dev))
@@ -728,8 +800,13 @@ def measure(label, kernel, plain, library, work, dev, card, *,
     plain_s = time_call(plain, dev, reps=20)
     # A tensor-core kernel is held to the 3xTF32 roof, the float32 roof
     # beside it.
-    bound, roof = work.bound(peaks.hbm_gb_s, peaks.tf32x3_tflop_s
-                             if tensor_cores else peaks.fp32_tflop_s)
+    if fp64:
+        flop_s = fp64_tflop_s(torch.cuda.get_device_name(dev))
+    elif tensor_cores:
+        flop_s = peaks.tf32x3_tflop_s
+    else:
+        flop_s = peaks.fp32_tflop_s
+    bound, roof = work.bound(peaks.hbm_gb_s, flop_s)
     rec = {"ms": per_call * 1e3, "kernel_only_ms": only * 1e3,
            "bound_ms": bound * 1e3, "bound_by": roof,
            "library_ms": lib * 1e3,
@@ -783,16 +860,17 @@ def check_gauss_jordan(dev, card):
     return max_err, records
 
 
-def check_gauss_jordan_on(sub, rhs, label):
+def check_gauss_jordan_on(sub, rhs, label, rtol=GJ_RTOL, atol=GJ_ATOL):
     """B1 against its plain version on (sub, rhs); returns the max abs
-    error, raises beyond rtol GJ_RTOL / atol GJ_ATOL."""
+    error, raises beyond ``rtol`` / ``atol`` (float32's GJ_RTOL /
+    GJ_ATOL by default)."""
     got = masked_gauss_jordan(sub, rhs)
     torch.cuda.synchronize()
     ref = masked_gauss_jordan_torch(sub, rhs)
     diff = (got - ref).abs()
     err = float(diff.max())
     if not bool(torch.isfinite(got).all()) or bool(
-            (diff > GJ_ATOL + GJ_RTOL * ref.abs()).any()):
+            (diff > atol + rtol * ref.abs()).any()):
         raise AssertionError(
             f"B1 disagrees with its plain version at {label}: max abs err "
             f"{err}")
@@ -2378,6 +2456,268 @@ def run_large_solve(card):
     return launches
 
 
+def check_gauss_jordan_f64(dev, card):
+    """Phase 3d: B1's float64 instance against its float64 plain version
+    at GJ64_SHAPES (rtol GJ64_RTOL / atol GJ64_ATOL), each timed as in
+    phase 3 beside ``torch.linalg.solve_ex`` in float64 and the bound
+    (float64 bytes at the HBM rate, or its flops at the FP64 rate)."""
+    rng = np.random.default_rng(13)
+    max_err, records = 0.0, {}
+    for n, w in GJ64_SHAPES:
+        a, e = spd_systems(rng, n, w, np.float64)
+        sub = torch.tensor(a, device=dev)
+        rhs = torch.tensor(e, device=dev)
+        del a, e
+        label = f"w={w} N={n} float64"
+        err = check_gauss_jordan_on(sub, rhs, label, GJ64_RTOL, GJ64_ATOL)
+        max_err = max(max_err, err)
+        records[(n, w)] = measure(
+            f"B1 float64 w={w:2d} N={n:6d} (max abs err {err:.3e}, rtol "
+            f"{GJ64_RTOL}, atol {GJ64_ATOL})",
+            lambda: masked_gauss_jordan(sub, rhs),
+            lambda: masked_gauss_jordan_torch(sub, rhs),
+            lambda: torch.linalg.solve_ex(sub, rhs[..., None]),
+            gauss_jordan_work(n, w, itemsize=8), dev, card, fp64=True)
+        del sub, rhs
+    return max_err, records
+
+
+def check_residual_parity(dev, card):
+    """Phase 4m: the residual-parity report through its entry point
+    (``python -m deeppreconditioning_tpu_torch.residual_parity``'s
+    ``run``) on the first RESIDUAL_CASES cases, numpy assembly, against
+    the JAX CPU fixture (``residual_parity.json``): float64 iterations
+    within 1 per case and technique and each float64 curve within
+    CURVE_RTOL over the common prefix; float32 within 2 (vanilla and
+    jacobi max(2, 5%)); B1 launched once per learned setup in each dtype,
+    no plain version and no host fallback on the card.  Returns the
+    launches by dtype."""
+    ref = json.loads(RESIDUAL_FIXTURE.read_text())
+    if (ref["seed"], ref["mesh_cells"]) != (residual_parity.SEED,
+                                            residual_parity.MESH_CELLS) or (
+            ref["cases"] < RESIDUAL_CASES):
+        raise AssertionError("the residual-parity fixture describes another "
+                             "run")
+    want = {(r["case"], r["technique"], r["dtype"]): r for r in ref["rows"]}
+    t0 = time.perf_counter()
+    _backend.reset_launch_counts()
+    rows = residual_parity.run(RESIDUAL_CASES, device=dev,
+                               log=lambda _: None)
+    by_dtype = _backend.dtype_launch_counts()
+    plain = _backend.plain_cuda_counts()
+    hold_host("residual-parity", ("ic0", "levels"))
+    wall_s = time.perf_counter() - t0
+    residual_parity.write_csv(RESULTS / "residual_parity.csv", rows)
+    header = (RESULTS / "residual_parity.csv").read_text().splitlines()[0]
+    failures, worst_curve, deltas = [], 0.0, {}
+    if header != ",".join(residual_parity.COLUMNS):
+        failures.append(f"residual_parity.csv schema changed: {header}")
+    for r in rows:
+        key = (r["case"], r["technique"], r["dtype"])
+        w = want[key]
+        d = abs(r["iterations"] - w["iterations"])
+        deltas.setdefault((r["technique"], r["dtype"]), []).append(d)
+        if r["dtype"] == "f64":
+            k = min(len(r["curve"]), len(w["curve"]))
+            got_c, want_c = np.asarray(r["curve"][:k]), np.asarray(
+                w["curve"][:k])
+            rel = float(np.max(np.abs(got_c - want_c) / np.abs(want_c))
+                        if k else 0.0)
+            worst_curve = max(worst_curve, rel)
+            if d > 1 or rel > CURVE_RTOL:
+                failures.append(f"{key}: {r['iterations']} vs "
+                                f"{w['iterations']}, curve rel {rel:.2e}")
+        else:
+            bar = (max(2, 0.05 * w["iterations"])
+                   if r["technique"] in RESIDUAL_DRIFT else 2)
+            if d > bar:
+                failures.append(f"{key}: {r['iterations']} vs "
+                                f"{w['iterations']}")
+    learned = sum(r["technique"] == "learned" for r in rows) // 2
+    f64 = by_dtype.get(("gauss_jordan", "float64"), 0)
+    f32 = by_dtype.get(("gauss_jordan", "float32"), 0)
+    print(f"residual parity: {RESIDUAL_CASES} cases x "
+          f"{len(deltas) // 2} techniques x (f64, f32), {wall_s:.1f} s "
+          f"wall; B1 launches float64 {f64}, float32 {f32} (learned "
+          f"setups per dtype: {learned}); plain versions on the card "
+          f"{plain}; worst float64 curve rel diff {worst_curve:.3e} (limit "
+          f"{CURVE_RTOL}) [{card}]")
+    for (tech, label), ds in sorted(deltas.items()):
+        mine = [r["iterations"] for r in rows
+                if (r["technique"], r["dtype"]) == (tech, label)]
+        print(f"  {tech:<20} {label}: iterations {mine}, max |delta| "
+              f"against the JAX CPU {label} {max(ds)}")
+    residual_parity.summarize(rows, log=lambda line: print("  " + line))
+    if f64 == 0 or f64 != learned or f32 != learned:
+        failures.append(f"B1 not launched once per learned setup in each "
+                        f"dtype: {by_dtype}")
+    if any(plain.values()):
+        failures.append(f"a plain version ran on the card: {plain}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"gauss_jordan": f32}, f64
+
+
+def check_sharded_solver(dev, card):
+    """Phase 4n: the distributed solver on the card in an NCCL group of
+    world size 1, at SHARDED_GRID^3 through the scaling bench's setup
+    (``python -m deeppreconditioning_tpu_torch.scaling_bench``): the fsai
+    factor's build (B1 once, w 4, N 262 144, no plain version), then
+    none / jacobi / block_jacobi_ic / fsai in allgather and halo modes:
+    iterations equal to ``preconditioned_conjugate_gradient`` on one
+    device with the same apply, within the scaling path's bars of the
+    JAX CPU float32 count at one shard (vanilla and jacobi 5%, the others
+    max(2, 2%)); the solve timed (median of SHARDED_REPS, CUDA events)
+    beside the byte model.  Then B1 on the build's real local systems,
+    timed as in phase 3.  Returns the launches, B1's error and record."""
+    ref = json.loads(PARALLEL_FIXTURE.read_text())["scaling"]
+    if (ref["grid"], ref["max_iter"], ref["sweeps"]) != (
+            SHARDED_GRID, scaling_bench.MAX_ITER, 8):
+        raise AssertionError("the parallel fixture describes another run")
+    t0 = time.perf_counter()
+    multihost.initialize_single(dev)
+    try:
+        world = multihost.solver_world(dev)
+        backend = torch.distributed.get_backend()
+        a, b_host = scaling_bench.scaling_system(SHARDED_GRID)
+        _backend.reset_launch_counts()
+        columns = scaling_bench.fsai_columns(a, dev)
+        torch.cuda.synchronize()
+        launches = _backend.launch_counts()
+        by_dtype = _backend.dtype_launch_counts()
+        plain = _backend.plain_cuda_counts()
+        hold_host("sharded")
+        failures = []
+        print(f"sharded solver: {backend} group of world size "
+              f"{world.size}, {SHARDED_GRID}^3 (n {a.shape[0]}); fsai "
+              f"factor width {columns[2]}: B1 launches {launches} "
+              f"{by_dtype}, plain versions on the card {plain} "
+              f"({time.perf_counter() - t0:.1f} s with the system)")
+        if launches["gauss_jordan"] != 1 or by_dtype.get(
+                ("gauss_jordan", "float32")) != 1 or any(plain.values()):
+            failures.append(f"the fsai build's B1: {launches}, {plain}")
+        if backend != "nccl":
+            failures.append(f"backend {backend}, not nccl")
+        ell = ELLMatrix.from_scipy(a, dtype=torch.float32, device=dev)
+        _backend.reset_launch_counts()
+        for mode in SHARDED_MODES:
+            for pre in SHARDED_PRECONDS:
+                solve = scaling_bench.solver_setup(a, b_host, world, pre,
+                                                   mode, columns=columns)
+                res = solve.run()
+                single = preconditioned_conjugate_gradient(
+                    ell_matvec, ell, solve.b, solve.single_apply,
+                    solve.m_data, max_iter=scaling_bench.MAX_ITER)
+                ms = time_call(solve.run, dev, reps=SHARDED_REPS) * 1e3
+                its, one = int(res.iterations), int(single.iterations)
+                want = ref["iterations"][f"{mode}/{pre}"]
+                bar = (0.05 * want if pre in ("none", "jacobi")
+                       else max(2, 0.02 * want))
+                x_diff = float((res.x - single.x).abs().max())
+                print(f"  {mode:<9} {pre:<15} iterations {its} (one device "
+                      f"{one}, JAX CPU f32 one shard {want}), residual "
+                      f"{float(res.residual):.2e}, |x - x_one| {x_diff:.2e};"
+                      f" solve {ms:.3f} ms (median of {SHARDED_REPS}); "
+                      f"comm model {solve.comm_bytes} B/iter/shard "
+                      f"[{card}]")
+                if its != one or abs(its - want) > bar:
+                    failures.append(f"{mode}/{pre}: {its} (one device "
+                                    f"{one}, JAX {want})")
+                del solve
+        solves = _backend.launch_counts()
+        if any(solves.values()) or any(_backend.plain_cuda_counts().values()):
+            failures.append(f"the solves ran a kernel or a plain version: "
+                            f"{solves}, {_backend.plain_cuda_counts()}")
+        hold_host("sharded", ("ic0",))
+    finally:
+        multihost.shutdown()
+    # B1 on the fsai build's real local systems (w 4, N 262 144)
+    plan, l0_v = scaling_bench.fsai_plan_inputs(a)
+    plan = plan.to(dev)
+    with torch.no_grad():
+        sub, e = local_systems(plan, lookup_local_blocks(
+            plan, torch.as_tensor(l0_v, device=dev)))
+    n, w = sub.shape[0], sub.shape[-1]
+    err = check_gauss_jordan_on(sub, e, "the sharded fsai build")
+    record = measure(
+        f"B1 on the sharded fsai build's local systems (w {w}, N {n}; "
+        f"max abs err {err:.3e}, rtol {GJ_RTOL}, atol {GJ_ATOL})",
+        lambda: masked_gauss_jordan(sub, e),
+        lambda: masked_gauss_jordan_torch(sub, e),
+        lambda: torch.linalg.solve_ex(sub, e[..., None]),
+        gauss_jordan_work(n, w), dev, card)
+    print(f"sharded solver phase: {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, err, record
+
+
+def _npz_arrays(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def check_generate(card):
+    """Phase 4o: the generate stage through its entry point (``python -m
+    deeppreconditioning_tpu_torch.generate_data``'s ``run``), the first
+    GENERATE_CASES cases on each route: on the numpy assembly every file
+    equal to the JAX package's (``residual_parity.json``'s sha256 digests:
+    the text files, the archive's members); on the native assembly (the
+    default) ``fvm_assemble`` called once per case, no fallback, and A's
+    pattern equal and values within GENERATE_RTOL of the numpy route's."""
+    ref = json.loads(RESIDUAL_FIXTURE.read_text())["generate"]
+    root = RESULTS / "generate"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--samples", str(GENERATE_CASES), "--mesh-cells", "2",
+            "--root"]
+    t0 = time.perf_counter()
+    _backend.reset_launch_counts()
+    with numpy_assembly():
+        out_np = generate_data.run(generate_data.parse_args(
+            args + [str(root / "numpy")]), log=lambda _: None)
+    t_np = time.perf_counter() - t0
+    hold_host("generate-numpy")
+    t0 = time.perf_counter()
+    _backend.reset_launch_counts()
+    out_nat = generate_data.run(generate_data.parse_args(
+        args + [str(root / "native")]), log=lambda _: None)
+    t_nat = time.perf_counter() - t0
+    calls = _backend.host_call_counts()["fvm_assemble"]
+    hold_host("generate-native", ("fvm_assemble",))
+    failures = []
+    digests = [case_digests(out_np / f"case_{i:04d}")
+               for i in range(GENERATE_CASES)]
+    differ = {}
+    for i, (got, want) in enumerate(zip(digests, ref["digests"])):
+        bad = [f for f in want if got.get(f) != want[f]]
+        if bad or set(got) != set(want):
+            differ[i] = bad
+    worst = 0.0
+    for i in range(GENERATE_CASES):
+        a_np = _npz_arrays(out_np / f"case_{i:04d}" / "matrix.npz")
+        a_nat = _npz_arrays(out_nat / f"case_{i:04d}" / "matrix.npz")
+        if not all(np.array_equal(a_np[k], a_nat[k])
+                   for k in ("row", "col", "shape", "format")):
+            failures.append(f"case {i}: the native A's pattern differs")
+            continue
+        rel = np.abs(a_nat["data"] - a_np["data"]) / np.abs(a_np["data"])
+        worst = max(worst, float(rel.max()))
+    print(f"generate stage: {GENERATE_CASES} cases; numpy route {t_np:.2f} s,"
+          f" files equal to the JAX package's digests on "
+          f"{GENERATE_CASES - len(differ)} of {GENERATE_CASES} cases "
+          f"(differing: {differ or 'none'}); native route {t_nat:.2f} s, "
+          f"fvm_assemble calls {calls}, A's max rel diff to the numpy "
+          f"route {worst:.3e} (limit {GENERATE_RTOL}) [{card}]")
+    if differ:
+        failures.append(f"files differ from the reference's on {differ}")
+    if calls != GENERATE_CASES:
+        failures.append(f"fvm_assemble called {calls} times")
+    if worst > GENERATE_RTOL:
+        failures.append(f"native A off the numpy one by {worst}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def build_report(build_s):
     """Phase 2's record: the build's wall time, each source's nvcc time,
     and ptxas's registers and spills per kernel instance; fails on any
@@ -2385,7 +2725,7 @@ def build_report(build_s):
     print(f"build: {build_s:.1f} s (0 if cached); nvcc per source "
           + ", ".join(f"{src} {s:.1f} s"
                       for src, s in sorted(_backend.build_seconds.items())))
-    spills = []
+    spills, recorded = [], []
     for section in _backend.build_log.split("--- ")[1:]:
         source, text = section.split("\n", 1)
         for fn, stack, stores, loads, regs in PTXAS_FUNCTION.findall(text):
@@ -2393,7 +2733,10 @@ def build_report(build_s):
                   f"stack, {stores} bytes spill stores, {loads} bytes spill "
                   f"loads")
             if source in NO_SPILL_SOURCES and int(stores) + int(loads):
-                spills.append(fn)
+                (recorded if SPILL_RECORDED.search(fn) else spills).append(
+                    f"{fn} ({stores} B stores, {loads} B loads)")
+    print(f"B1 float64 instances that spill (recorded, not refused): "
+          f"{recorded or 'none'}")
     if spills:
         raise AssertionError(f"ptxas spilled registers in {spills}")
 
@@ -2405,6 +2748,11 @@ def main() -> None:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(dev)}")
+
+    # Every fixture-held path runs on the numpy FVM assembly its fixture
+    # was made on; phase 4o, after them, runs both routes.
+    assembly = contextlib.ExitStack()
+    assembly.enter_context(numpy_assembly())
 
     # 2. build
     t0 = time.perf_counter()
@@ -2418,6 +2766,11 @@ def main() -> None:
     gj_err, gj_times = check_gauss_jordan(dev, card)
     dia_err, dia_times = check_dia_spmv(dev, card)
     bsr_err, bsr_times, bsr_ops = check_bsr_spmm(dev, card)
+
+    # 3d. B1's float64 instance
+    t0 = time.perf_counter()
+    gj64_err, gj64_times = check_gauss_jordan_f64(dev, card)
+    print(f"phase 3d (B1 float64): {time.perf_counter() - t0:.1f} s")
 
     # 3c. the roofline path
     roofline_launches = run_roofline_path(dev, card, bsr_ops)
@@ -2563,6 +2916,23 @@ def main() -> None:
           f"{frames_peak:.3f}, irregular batched {irregular_peak:.3f}, mesh "
           f"study {mesh_peak:.3f}")
 
+    # 4m. residual parity, float64 and float32 (B1 at float64)
+    t0 = time.perf_counter()
+    parity_launches, gj64_launches = check_residual_parity(dev, card)
+    print(f"phase 4m (residual parity): {time.perf_counter() - t0:.1f} s")
+
+    # 4n. the sharded solver in an NCCL group of world size 1
+    t0 = time.perf_counter()
+    sharded_launches, gj_sharded_err, _ = check_sharded_solver(dev, card)
+    gj_err = max(gj_err, gj_sharded_err)
+    print(f"phase 4n (sharded solver): {time.perf_counter() - t0:.1f} s")
+
+    # 4o. the generate stage on both assembly routes
+    assembly.close()
+    t0 = time.perf_counter()
+    check_generate(card)
+    print(f"phase 4o (generate stage): {time.perf_counter() - t0:.1f} s")
+
     # 5. records
     paths = {"per-case": {"gauss_jordan": launches},
              "train": train_launches, "conv": conv_launches,
@@ -2574,9 +2944,13 @@ def main() -> None:
              "frames": frames_launches,
              "scaling-protocols": protocol_launches,
              "structured-train": struct_launches,
-             "large-solve": large_launches}
+             "large-solve": large_launches,
+             "residual-parity": parity_launches,
+             "sharded": sharded_launches}
     print("launches per path: " + "; ".join(
         f"{path} {counts}" for path, counts in paths.items()))
+    print(f"B1 float64 launches on the residual-parity path: "
+          f"{gj64_launches}")
     print("host runtime calls per path (no numpy fallback on any): "
           + "; ".join(f"{path} {counts}"
                       for path, counts in HOST_PATHS.items()))
@@ -2589,6 +2963,14 @@ def main() -> None:
         "launches": sum(c.get("gauss_jordan", 0) for c in paths.values()),
         "max_abs_err": gj_err,
         **gj_times[GJ_MAIN_SHAPE],
+    }, {
+        "name": "gauss_jordan_f64",
+        "route": "cuda",
+        "source": "deeppreconditioning_tpu_torch/csrc/gauss_jordan.cu",
+        "replaces": "deeppreconditioning_tpu/ops/fsai.py:614",
+        "launches": gj64_launches,
+        "max_abs_err": gj64_err,
+        **gj64_times[GJ64_MAIN_SHAPE],
     }, {
         "name": "dia_spmv",
         "route": "cuda",

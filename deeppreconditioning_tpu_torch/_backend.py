@@ -9,6 +9,8 @@ at import time: the CPU tests import every module of the port.
 Every kernel wrapper calls ``count_launch(name)`` right after a launch the
 kernel accepted, and nowhere else, so a run can show that its main path
 went through the kernels (``reset_launch_counts`` / ``launch_counts``).
+A wrapper with more than one instance passes the launch's dtype too, and
+``dtype_launch_counts`` keeps those launches by (name, dtype).
 Every plain version calls ``count_plain(name, tensor)``, which counts the
 calls made on a CUDA tensor (``plain_cuda_counts``): a main path on the
 card must read 0 there, since on the card only a comparison with the
@@ -54,6 +56,7 @@ HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
 HOST_ENTRIES = ("conv_plan", "ic0", "ict", "levels", "fvm_assemble")
 
 _launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+_dtype_launches: dict[tuple[str, str], int] = {}
 _plain_on_cuda: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _host_calls: dict[str, int] = dict.fromkeys(HOST_ENTRIES, 0)
 _host_fallbacks: dict[str, int] = dict.fromkeys(HOST_ENTRIES, 0)
@@ -73,8 +76,11 @@ def device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, dtype: torch.dtype | None = None) -> None:
     _launches[name] += 1
+    if dtype is not None:
+        key = (name, str(dtype).removeprefix("torch."))
+        _dtype_launches[key] = _dtype_launches.get(key, 0) + 1
 
 
 def count_plain(name: str, tensor: torch.Tensor) -> None:
@@ -98,6 +104,7 @@ def reset_launch_counts() -> None:
     for name in KERNELS:
         _launches[name] = 0
         _plain_on_cuda[name] = 0
+    _dtype_launches.clear()
     for name in HOST_ENTRIES:
         _host_calls[name] = 0
         _host_fallbacks[name] = 0
@@ -105,6 +112,11 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(_launches)
+
+
+def dtype_launch_counts() -> dict[tuple[str, str], int]:
+    """Launches by (kernel, dtype), e.g. ("gauss_jordan", "float64")."""
+    return dict(_dtype_launches)
 
 
 def plain_cuda_counts() -> dict[str, int]:
@@ -195,11 +207,12 @@ def kernel_library() -> ctypes.CDLL:
     if not lib_path.exists():
         build_log = _build(sources, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    lib.dp_gauss_jordan_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.dp_gauss_jordan_f32.restype = ctypes.c_int
+    for entry in (lib.dp_gauss_jordan_f32, lib.dp_gauss_jordan_f64):
+        entry.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        entry.restype = ctypes.c_int
     # vals, x, y, the launch plan's parameter block, the stream.  B2 runs
     # once per product and the call only enqueues a launch, so it keeps
     # the GIL (no release and re-acquire around it).

@@ -8,7 +8,9 @@ fsai_power, data_root).  ``params.yaml`` keeps these as flat ``key: value`` line
 ``channels`` as a block list (``- 16`` lines under ``channels:``); other
 blocks are skipped.  Each value takes the type of its default (so
 ``learning_rate`` is a float, a ``channels`` entry an int).
-``get_model_class`` / ``get_dataset_class`` select a class by its name,
+``params_flat`` reads every key of those lines (``repro``'s stage
+records).  ``get_model_class`` / ``get_dataset_class`` select a class by
+its name,
 as the reference's.  ``fsai_width`` and ``fsai_power`` are extra keys in the
 reference; their defaults here are ``scripts/train_fsai.py``'s
 fallbacks.  The reference's ``max_epochs`` and ``metrics_dir`` are not
@@ -84,6 +86,41 @@ def params_show(path: str | Path = "params.yaml") -> Params:
             elif value:
                 merged[key] = type(DEFAULT_PARAMS[key])(value)
     return Params(**merged)
+
+
+def _scalar(text: str):
+    """A ``key: value`` line's value as int, float or string."""
+    for kind in (int, float):
+        try:
+            return kind(text)
+        except ValueError:
+            pass
+    return text
+
+
+def params_flat(path: str | Path = "params.yaml") -> dict:
+    """Every flat ``key: value`` of ``path`` (int, float or string, as
+    the text reads) and every block list of ``- item`` lines, in file
+    order; nothing for a missing file."""
+    out: dict = {}
+    p = Path(path)
+    if not p.exists():
+        return out
+    listing = None
+    for line in p.read_text().splitlines():
+        line = line.split("#", 1)[0].rstrip()
+        if listing is not None and line.startswith("- "):
+            out[listing].append(_scalar(line[2:].strip()))
+            continue
+        listing = None
+        if not line or line[0] in " \t-" or ":" not in line:
+            continue
+        key, value = (s.strip() for s in line.split(":", 1))
+        if value:
+            out[key] = _scalar(value)
+        else:
+            out[key], listing = [], key
+    return out
 
 
 def get_model_class(name: str):

@@ -13,9 +13,22 @@
 // step into blocks the scheduler cannot overlap).  Rounding differs from
 // the plain version's division by an ulp or so per step.
 //
-// Layout: sub (N, w, w) row-major, e (N, w), y (N, w), all float32,
-// contiguous and 16-byte aligned, 1 <= w <= 63.  The TPU kernel's
-// lane-major (w, w+1, N) layout is not kept.
+// Layout: sub (N, w, w) row-major, e (N, w), y (N, w), all float32 or
+// all float64, contiguous and 16-byte aligned, 1 <= w <= 63.  The TPU
+// kernel's lane-major (w, w+1, N) layout is not kept.
+//
+// The float64 instance (dp_gauss_jordan_f64) is the same elimination on
+// doubles, as the TPU kernel is dtype-generic (its output takes the
+// input's dtype, fsai.py:656-659): it divides by the pivot with a true
+// IEEE division (1.0 / pivot, then multiplies), copies rows to registers
+// as double2, and holds R (W + 1) doubles a thread, twice the float32
+// instance's registers.  Its teams are wider where the float32 ones
+// would need more than about 200 registers (W 24, 32, 42, 48: T 12, 16,
+// 21, 24, R 2); W 64 (T 32, R 2: 130 doubles) still spills, which the
+// build report records.  It serves the float64 setups (residual parity's
+// learned row, w 24) and is plain: its speed is later work.  The float64
+// bound: 8 (w^2 + 2 w) bytes a system against 3350 GB/s, or its flops
+// against the card's FP64 rate.
 //
 // What bounds it on an H100 (3350 GB/s HBM, 67 TFLOP/s float32): a system
 // reads 4 (w^2 + w) bytes, writes 4 w and needs (w - 1) w (w + 1) flops
@@ -74,14 +87,54 @@ struct Gj {
   static constexpr int TEAMS = kWarps * TPW;  // systems per CTA pass
 };
 
-// Shared memory of one CTA at runtime width w: the systems and right-hand
-// sides of one pass.
-template <int W, int T>
-__host__ __device__ int smem_floats(int w) {
-  return (Gj<W, T>::TEAMS * (w * w + w) + 3) / 4 * 4;
+// Per-scalar pieces: 16 bytes of S as one vector load (its components read
+// by name: an indexed read made ptxas spill the float32 W 8 instance), 1 /
+// pivot and the multiply-add.
+template <typename S>
+struct Scalar;
+
+template <>
+struct Scalar<float> {
+  using Vec = float4;
+  static constexpr int kVec = 4;
+  __device__ __forceinline__ static Vec zero() {
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  // The hardware's reciprocal (within 2 ulp), without the branch to IEEE
+  // division's slow path.
+  __device__ __forceinline__ static float recip(float x) {
+    return __fdividef(1.0f, x);
+  }
+  __device__ __forceinline__ static float fma(float a, float b, float c) {
+    return fmaf(a, b, c);
+  }
+};
+
+template <>
+struct Scalar<double> {
+  using Vec = double2;
+  static constexpr int kVec = 2;
+  __device__ __forceinline__ static Vec zero() {
+    return make_double2(0.0, 0.0);
+  }
+  __device__ __forceinline__ static double recip(double x) {
+    return 1.0 / x;
+  }
+  __device__ __forceinline__ static double fma(double a, double b,
+                                               double c) {
+    return ::fma(a, b, c);
+  }
+};
+
+// Shared memory of one CTA at runtime width w, in elements: the systems
+// and right-hand sides of one pass, rounded up to 16 bytes.
+template <typename S, int W, int T>
+__host__ __device__ int smem_elems(int w) {
+  constexpr int v = 16 / static_cast<int>(sizeof(S));
+  return (Gj<W, T>::TEAMS * (w * w + w) + v - 1) / v * v;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -97,28 +150,32 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Copy `count` floats from src to dst (both 16-byte aligned) in 16-byte
+// Copy `count` elements from src to dst (both 16-byte aligned) in 16-byte
 // pieces over the CTA's threads; the last piece reads only what exists.
-__device__ __forceinline__ void stage_floats(float* dst, const float* src,
-                                             long long count) {
-  for (long long v = threadIdx.x; v * 4 < count; v += kThreads) {
-    const long long left = count - v * 4;
-    cp_async16(dst + v * 4, src + v * 4,
-               left >= 4 ? 16 : static_cast<int>(left) * 4);
+template <typename S>
+__device__ __forceinline__ void stage_elems(S* dst, const S* src,
+                                            long long count) {
+  constexpr int v = 16 / static_cast<int>(sizeof(S));
+  for (long long i = threadIdx.x; i * v < count; i += kThreads) {
+    const long long left = count - i * v;
+    cp_async16(dst + i * v, src + i * v,
+               left >= v ? 16 : static_cast<int>(left) * int(sizeof(S)));
   }
 }
 
-template <int W, int T>
+template <typename S, int W, int T>
 __global__ void __launch_bounds__(kThreads)
-gauss_jordan_kernel(const float* __restrict__ sub,
-                    const float* __restrict__ e, float* __restrict__ y,
-                    int n, int w) {
+gauss_jordan_kernel(const S* __restrict__ sub, const S* __restrict__ e,
+                    S* __restrict__ y, int n, int w) {
   using G = Gj<W, T>;
+  using Sc = Scalar<S>;
   constexpr int R = G::R;
-  extern __shared__ __align__(16) float smem[];
+  constexpr int V = Sc::kVec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* smem = reinterpret_cast<S*>(smem_raw);
   const int ww = w * w;
-  float* s_sub = smem;
-  float* s_e = smem + G::TEAMS * ww;
+  S* s_sub = smem;
+  S* s_e = smem + G::TEAMS * ww;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool active = lane / T < G::TPW;  // lanes past the last team idle
   const int team = warp * G::TPW + (active ? lane / T : 0);
@@ -129,8 +186,8 @@ gauss_jordan_kernel(const float* __restrict__ sub,
   auto stage = [&](int chunk) {
     const long long s0 = static_cast<long long>(chunk) * G::TEAMS;
     const long long cnt = n - s0 < G::TEAMS ? n - s0 : G::TEAMS;
-    stage_floats(s_sub, sub + s0 * ww, cnt * ww);
-    stage_floats(s_e, e + s0 * w, cnt * w);
+    stage_elems(s_sub, sub + s0 * ww, cnt * ww);
+    stage_elems(s_e, e + s0 * w, cnt * w);
   };
 
   int chunk = blockIdx.x;
@@ -141,30 +198,33 @@ gauss_jordan_kernel(const float* __restrict__ sub,
     __syncthreads();  // the pass's systems are in shared memory
 
     // [S | e] rows j + T q of this team's system, identity past w; rows
-    // of a width that is a multiple of 4 are read as float4.
-    float a[R][W + 1];
+    // of a width that is a multiple of V are read as 16-byte vectors.
+    S a[R][W + 1];
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       const int i = j + T * q;
-      const float* srow = s_sub + team * ww + i * w;
-      if (w % 4 == 0) {
+      const S* srow = s_sub + team * ww + i * w;
+      if (w % V == 0) {
 #pragma unroll
-        for (int g = 0; g < W / 4; ++g) {
-          const bool live = i < w && 4 * g < w;  // w % 4 == 0: all four
-          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (live) v = reinterpret_cast<const float4*>(srow)[g];
-          a[q][4 * g + 0] = live ? v.x : (i == 4 * g + 0 ? 1.0f : 0.0f);
-          a[q][4 * g + 1] = live ? v.y : (i == 4 * g + 1 ? 1.0f : 0.0f);
-          a[q][4 * g + 2] = live ? v.z : (i == 4 * g + 2 ? 1.0f : 0.0f);
-          a[q][4 * g + 3] = live ? v.w : (i == 4 * g + 3 ? 1.0f : 0.0f);
+        for (int g = 0; g < W / V; ++g) {
+          const bool live = i < w && V * g < w;  // w % V == 0: all V
+          typename Sc::Vec v = Sc::zero();
+          if (live) v = reinterpret_cast<const typename Sc::Vec*>(srow)[g];
+          const int c0 = V * g;
+          a[q][c0 + 0] = live ? v.x : (i == c0 + 0 ? S(1) : S(0));
+          a[q][c0 + 1] = live ? v.y : (i == c0 + 1 ? S(1) : S(0));
+          if constexpr (V == 4) {
+            a[q][c0 + 2] = live ? v.z : (i == c0 + 2 ? S(1) : S(0));
+            a[q][c0 + 3] = live ? v.w : (i == c0 + 3 ? S(1) : S(0));
+          }
         }
       } else {
 #pragma unroll
         for (int c = 0; c < W; ++c) {
-          a[q][c] = (i < w && c < w) ? srow[c] : (i == c ? 1.0f : 0.0f);
+          a[q][c] = (i < w && c < w) ? srow[c] : (i == c ? S(1) : S(0));
         }
       }
-      a[q][W] = i < w ? s_e[team * w + i] : 0.0f;
+      a[q][W] = i < w ? s_e[team * w + i] : S(0);
     }
     __syncthreads();  // every thread has read the stage
     if (chunk + static_cast<int>(gridDim.x) < chunks) {
@@ -172,31 +232,31 @@ gauss_jordan_kernel(const float* __restrict__ sub,
     }
     cp_async_commit();
 
-    float inv_row[R];
+    S inv_row[R];
 #pragma unroll
-    for (int q = 0; q < R; ++q) inv_row[q] = 1.0f;
+    for (int q = 0; q < R; ++q) inv_row[q] = S(1);
 #pragma unroll
     for (int k = 0; k < W; ++k) {
       if (k >= w) break;  // padded steps change no real row
       const int qk = k / T;  // static: the owner's row slot
       const int src = base + k % T;  // the owner's lane
       const bool owner = j == k % T;
-      float inv = __fdividef(1.0f, a[qk][k]);  // no slow-path branch
+      S inv = Sc::recip(a[qk][k]);
       if constexpr (T > 1) inv = __shfl_sync(kFullMask, inv, src);
-      float mult[R];
+      S mult[R];
 #pragma unroll
       for (int q = 0; q < R; ++q) {
         // Row k (this thread's slot qk if it owns row k) stays unscaled.
         const bool pivot_row = q == qk && owner;
-        mult[q] = pivot_row ? 0.0f : a[q][k] * inv;
+        mult[q] = pivot_row ? S(0) : a[q][k] * inv;
         if (pivot_row) inv_row[q] = inv;
       }
 #pragma unroll
       for (int c = k + 1; c <= W; ++c) {  // no branch: one block per step
-        float u = a[qk][c];  // row k's column c, from its owner
+        S u = a[qk][c];  // row k's column c, from its owner
         if constexpr (T > 1) u = __shfl_sync(kFullMask, u, src);
 #pragma unroll
-        for (int q = 0; q < R; ++q) a[q][c] = fmaf(-mult[q], u, a[q][c]);
+        for (int q = 0; q < R; ++q) a[q][c] = Sc::fma(-mult[q], u, a[q][c]);
       }
     }
 
@@ -211,17 +271,17 @@ gauss_jordan_kernel(const float* __restrict__ sub,
   }
 }
 
-template <int W, int T>
-cudaError_t launch(const float* sub, const float* e, float* y, int n, int w,
+template <typename S, int W, int T>
+cudaError_t launch(const S* sub, const S* e, S* y, int n, int w,
                    cudaStream_t stream) {
   static int sms = 0;
   static int per_sm[W + 1] = {};  // resident CTAs per SM, by w
-  const size_t smem = sizeof(float) * smem_floats<W, T>(w);
+  const size_t smem = sizeof(S) * smem_elems<S, W, T>(w);
   if (per_sm[w] == 0) {
     cudaError_t err = cudaFuncSetAttribute(
-        gauss_jordan_kernel<W, T>,
+        gauss_jordan_kernel<S, W, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(sizeof(float) * smem_floats<W, T>(W)));
+        static_cast<int>(sizeof(S) * smem_elems<S, W, T>(W)));
     int dev = 0, blocks = 0;
     if (err == cudaSuccess) err = cudaGetDevice(&dev);
     if (err == cudaSuccess) {
@@ -229,7 +289,7 @@ cudaError_t launch(const float* sub, const float* e, float* y, int n, int w,
     }
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, gauss_jordan_kernel<W, T>, kThreads, smem);
+          &blocks, gauss_jordan_kernel<S, W, T>, kThreads, smem);
     }
     if (err != cudaSuccess) return err;
     per_sm[w] = blocks > 0 ? blocks : 1;
@@ -237,15 +297,15 @@ cudaError_t launch(const float* sub, const float* e, float* y, int n, int w,
   const int chunks = (n + Gj<W, T>::TEAMS - 1) / Gj<W, T>::TEAMS;
   const int wave = sms * per_sm[w];
   const int grid = chunks < wave ? chunks : wave;
-  gauss_jordan_kernel<W, T><<<grid, kThreads, smem, stream>>>(sub, e, y, n,
-                                                              w);
+  gauss_jordan_kernel<S, W, T><<<grid, kThreads, smem, stream>>>(sub, e, y,
+                                                                 n, w);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Solve sub[i] @ y[i] = e[i] for i < n at width w (1 <= w <= 63) on
-// `stream`; w runs on the smallest built width W >= w.  Returns
+// `stream`, float32; w runs on the smallest built width W >= w.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int dp_gauss_jordan_f32(const void* sub, const void* e, void* y,
                                    int n, int w, void* stream) {
@@ -258,21 +318,53 @@ extern "C" int dp_gauss_jordan_f32(const void* sub, const void* e, void* y,
   }
   cudaError_t err;
   if (w <= 4) {
-    err = launch<4, 1>(s, rhs, out, n, w, st);
+    err = launch<float, 4, 1>(s, rhs, out, n, w, st);
   } else if (w <= 8) {
-    err = launch<8, 1>(s, rhs, out, n, w, st);
+    err = launch<float, 8, 1>(s, rhs, out, n, w, st);
   } else if (w <= 16) {
-    err = launch<16, 4>(s, rhs, out, n, w, st);
+    err = launch<float, 16, 4>(s, rhs, out, n, w, st);
   } else if (w <= 24) {
-    err = launch<24, 6>(s, rhs, out, n, w, st);
+    err = launch<float, 24, 6>(s, rhs, out, n, w, st);
   } else if (w <= 32) {
-    err = launch<32, 8>(s, rhs, out, n, w, st);
+    err = launch<float, 32, 8>(s, rhs, out, n, w, st);
   } else if (w <= 42) {
-    err = launch<42, 14>(s, rhs, out, n, w, st);
+    err = launch<float, 42, 14>(s, rhs, out, n, w, st);
   } else if (w <= 48) {
-    err = launch<48, 16>(s, rhs, out, n, w, st);
+    err = launch<float, 48, 16>(s, rhs, out, n, w, st);
   } else {
-    err = launch<64, 32>(s, rhs, out, n, w, st);
+    err = launch<float, 64, 32>(s, rhs, out, n, w, st);
+  }
+  return static_cast<int>(err);
+}
+
+// The float64 instance: the same widths, wider teams where the float32
+// ones would exceed the registers (see the header).
+extern "C" int dp_gauss_jordan_f64(const void* sub, const void* e, void* y,
+                                   int n, int w, void* stream) {
+  const double* s = static_cast<const double*>(sub);
+  const double* rhs = static_cast<const double*>(e);
+  double* out = static_cast<double*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < 1 || w < 1 || w > 63) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err;
+  if (w <= 4) {
+    err = launch<double, 4, 1>(s, rhs, out, n, w, st);
+  } else if (w <= 8) {
+    err = launch<double, 8, 1>(s, rhs, out, n, w, st);
+  } else if (w <= 16) {
+    err = launch<double, 16, 4>(s, rhs, out, n, w, st);
+  } else if (w <= 24) {
+    err = launch<double, 24, 12>(s, rhs, out, n, w, st);
+  } else if (w <= 32) {
+    err = launch<double, 32, 16>(s, rhs, out, n, w, st);
+  } else if (w <= 42) {
+    err = launch<double, 42, 21>(s, rhs, out, n, w, st);
+  } else if (w <= 48) {
+    err = launch<double, 48, 24>(s, rhs, out, n, w, st);
+  } else {
+    err = launch<double, 64, 32>(s, rhs, out, n, w, st);
   }
   return static_cast<int>(err);
 }

@@ -1,15 +1,30 @@
 """Finite-volume pressure-Poisson generators (2-D and 3-D castellated).
 
-A numpy copy of ``deeppreconditioning_tpu/data/fvm.py`` (its 2-D numpy
-assembly path and the 3-D castellated / permuted family): the JAX
-package's ``data/__init__`` imports jax, so the port cannot import even
-its host code.  The random streams are the same ``np.random.Generator``
-calls in the same order, so a seed builds the same cases bit for bit;
-``tests/test_torch_fvm.py`` holds the copy equal to the original.
+A numpy copy of ``deeppreconditioning_tpu/data/fvm.py`` (its 2-D
+assembly, the 3-D castellated / permuted family, ``save_case`` and
+``generate_dataset``): the JAX package's ``data/__init__`` imports jax,
+so the port cannot import even its host code.  The random streams are
+the same ``np.random.Generator`` calls in the same order, so a seed
+builds the same cases; ``tests/test_torch_fvm.py`` holds the copy equal
+to the original.
+
+The 2-D assembly routes as the reference's does: through the host
+runtime's ``fvm_assemble`` (``native``) whenever ``native_assembly()`` is
+true, which it is whenever the runtime builds and loads, else through
+the numpy assembly here.  The two agree to ~1e-14 relative, which the
+ground-truth CG amplifies to ~1e-10.  ``native_assembly`` plays the role
+of the reference's ``native.available`` for this one step: a caller that
+holds counts made on the numpy route (the tests' fixtures were made with
+the reference's native library switched off) replaces it with
+``lambda: False``, as the reference's fixture scripts replace
+``native.available``, or uses ``numpy_assembly()``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import zipfile
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -17,6 +32,8 @@ import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg  # noqa: F401  (sp.linalg.cg / eigsh)
 from scipy.ndimage import label
+
+from deeppreconditioning_tpu_torch import native
 
 RHO_WATER = 1000.0
 RHO_SLUDGE = 1400.0
@@ -44,6 +61,26 @@ def _sludge_height(nx: int, rng: np.random.Generator) -> np.ndarray:
     return 0.1 + 0.4 * h
 
 
+def native_assembly() -> bool:
+    """Whether ``assemble_pressure_poisson`` takes the host runtime's
+    ``fvm_assemble``: whenever the runtime builds and loads (the
+    reference's ``native.available()`` route)."""
+    return native.available()
+
+
+@contextlib.contextmanager
+def numpy_assembly():
+    """Pin the 2-D assembly to its numpy route inside the block (the
+    route the fixtures' counts were made on)."""
+    global native_assembly
+    saved = native_assembly
+    native_assembly = lambda: False  # noqa: E731
+    try:
+        yield
+    finally:
+        native_assembly = saved
+
+
 def assemble_pressure_poisson(
     ny: int,
     nx: int,
@@ -53,8 +90,15 @@ def assemble_pressure_poisson(
 ) -> sp.coo_matrix:
     """SPD (negated) FVM Laplacian with harmonic face diffusivity
     ``dt / rho`` on an (ny, nx) grid; the fixed-value top boundary adds
-    its face coefficient to the diagonal."""
+    its face coefficient to the diagonal.  Native when
+    ``native_assembly()``, else numpy."""
     n = ny * nx
+    if native_assembly():
+        rows_n, cols_n, vals_n, _ = native.fvm_assemble(
+            ny, nx, rho, dx, dy, DT, True)
+        a = sp.coo_matrix((vals_n, (rows_n, cols_n)), shape=(n, n))
+        a.sum_duplicates()
+        return a.tocoo()
     idx = np.arange(n).reshape(ny, nx)
     rau = DT / rho
 
@@ -307,3 +351,36 @@ def save_case(case: FVMCase, folder: Path) -> None:
     sp.save_npz(folder / "matrix.npz", case.matrix, compressed=False)
     np.savetxt(folder / "right_hand_side.csv", case.rhs)
     np.savetxt(folder / "solution.csv", case.solution)
+
+
+def case_digests(folder: Path) -> dict[str, str]:
+    """sha256 of what a case folder holds: each text file, and each member
+    of ``matrix.npz`` by name (``matrix.npz/row.npy`` ...), in archive
+    order.  The archive's own bytes carry its write time in the zip
+    headers, so two writes of one case differ there and nowhere else."""
+    folder = Path(folder)
+    out = {}
+    with zipfile.ZipFile(folder / "matrix.npz") as archive:
+        for member in archive.namelist():
+            out[f"matrix.npz/{member}"] = hashlib.sha256(
+                archive.read(member)).hexdigest()
+    for name in ("right_hand_side.csv", "solution.csv"):
+        out[name] = hashlib.sha256((folder / name).read_bytes()).hexdigest()
+    return out
+
+
+def generate_dataset(
+    root: Path,
+    number_samples: int = 500,
+    mesh_cells: int = 2,
+    seed: int = 69420,
+) -> None:
+    """The sludge-pattern data set: ``number_samples`` cases from
+    ``seed`` at ``mesh_cells``, written as ``root/case_0000`` ... in the
+    reference's layout (the reference's ``generate_dataset``; its
+    defaults are params.yaml's sample count and the generate stage's
+    seed)."""
+    rng = np.random.default_rng(seed)
+    for i in range(number_samples):
+        case = generate_sludge_case(rng, mesh_cells=mesh_cells)
+        save_case(case, Path(root) / f"case_{i:04d}")

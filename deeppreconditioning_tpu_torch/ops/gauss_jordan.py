@@ -12,6 +12,8 @@ kernel to the plain version, and no width gate: 1 <= w <= 63.  The
 kernel is built for the widths ``INSTANCE_WIDTHS`` and runs a call of
 width w on ``instance_width(w)``, padding inside the kernel (identity rows,
 zero right-hand side), which leaves y[:, :w] exactly as at width w.
+The kernel has a float32 and a float64 instance (``dp_gauss_jordan_f32``
+/ ``_f64``), over the same widths; the dtype of ``sub`` picks one.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from deeppreconditioning_tpu_torch import _backend
 
 MAX_WIDTH = 63
 INSTANCE_WIDTHS = (4, 8, 16, 24, 32, 42, 48, 64)  # the kernel's widths
+KERNEL_DTYPES = (torch.float32, torch.float64)  # its two instances
 
 
 def instance_width(w: int) -> int:
@@ -59,8 +62,9 @@ def check_gauss_jordan_args(sub: torch.Tensor, e: torch.Tensor) -> None:
     if sub.device.type != "cuda" or e.device != sub.device:
         raise ValueError("gauss_jordan_cuda needs sub and e on one CUDA "
                          f"device, got {sub.device} and {e.device}")
-    if sub.dtype != torch.float32 or e.dtype != torch.float32:
-        raise ValueError(f"float32 only, got {sub.dtype} and {e.dtype}")
+    if sub.dtype not in KERNEL_DTYPES or e.dtype != sub.dtype:
+        raise ValueError(f"float32 or float64 (one dtype), got {sub.dtype} "
+                         f"and {e.dtype}")
     if sub.dim() != 3 or sub.shape[1] != sub.shape[2]:
         raise ValueError(f"sub must be (N, w, w), got {tuple(sub.shape)}")
     n, w = sub.shape[0], sub.shape[1]
@@ -91,12 +95,12 @@ def gauss_jordan_cuda(sub: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return y
     stream = torch.cuda.current_stream(sub.device).cuda_stream
-    rc = lib.dp_gauss_jordan_f32(
-        sub.data_ptr(), e.data_ptr(), y.data_ptr(), n, w, stream
-    )
+    entry = (lib.dp_gauss_jordan_f64 if sub.dtype == torch.float64
+             else lib.dp_gauss_jordan_f32)
+    rc = entry(sub.data_ptr(), e.data_ptr(), y.data_ptr(), n, w, stream)
     if rc != 0:
         raise RuntimeError(f"gauss_jordan kernel launch failed: cuda error {rc}")
-    _backend.count_launch("gauss_jordan")
+    _backend.count_launch("gauss_jordan", sub.dtype)
     return y
 
 

@@ -25,7 +25,8 @@ still running.  The matvec and the preconditioner take (B, n).
 ``pcg_sequence_fixed_trips`` solves k right-hand sides of one operator in
 order, each a cold-start fixed-trip solve (the multi-RHS protocol);
 ``conjugate_gradient`` is PCG with the identity; ``pcg_with_history``
-runs ``max_iter`` masked iterations and returns the residual curve;
+returns the residual curve of ``max_iter`` masked iterations (running
+them until ``done`` reads true at a chunk's end);
 ``benchmark_cg`` is the reference's scipy wrapper (host).
 """
 
@@ -196,11 +197,15 @@ def pcg_with_history(
     m_data: Any = None,
     rtol: float = 1e-8,
     max_iter: int = 1024,
+    check_every: int = 64,
 ):
-    """PCG for exactly ``max_iter`` masked iterations returning the
-    squared relative residual after each (history[i] after i + 1
-    iterations, held once converged), as the reference's scan.  Returns
-    (CGResult, history (max_iter,))."""
+    """PCG for ``max_iter`` masked iterations returning the squared
+    relative residual after each (history[i] after i + 1 iterations, held
+    once converged), as the reference's scan.  Returns (CGResult, history
+    (max_iter,)).  ``done`` is read on the host once per ``check_every``
+    iterations; once it holds, every later masked iteration would leave
+    the state and its residual as they are, so the rest of the history is
+    the last residual repeated, with no more iterations run."""
     x = torch.zeros_like(b)
     r = b - matvec(a_data, x)
     z = apply_m(m_data, r)
@@ -211,7 +216,10 @@ def pcg_with_history(
     k = torch.zeros((), dtype=torch.int32, device=b.device)
     done = torch.dot(r, r) / bb < rtol
     history = []
-    for _ in range(max_iter):
+    while len(history) < max_iter:
+        if history and len(history) % check_every == 0 and bool(done):
+            history += [history[-1]] * (max_iter - len(history))
+            break
         ap = matvec(a_data, p)
         rz = torch.dot(r, z)
         denom = torch.dot(ap, p)

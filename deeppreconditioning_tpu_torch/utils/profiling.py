@@ -19,7 +19,8 @@ back-to-back launches, so no host time between launches enters it.  Its
 bound (``KernelWork.bound``) is the least time the card could take for the
 same work: the larger of its minimum bytes over the HBM bandwidth and its
 flops over the peak of the units it runs on (float32 outside the tensor
-cores, or 3xTF32 on them); ``gauss_jordan_work``, ``dia_work`` and
+cores, or 3xTF32 on them; float64 outside them, ``fp64_tflop_s``);
+``gauss_jordan_work``, ``dia_work`` and
 ``bsr_work`` count the bytes and flops that the inputs need.
 """
 
@@ -61,6 +62,13 @@ CARD_PEAKS = (
     ("H100", CardPeaks(3350.0, 67.0, 495.0)),  # SXM5: "NVIDIA H100 80GB HBM3"
     ("H200", CardPeaks(4800.0, 67.0, 495.0)),
 )
+
+
+# Dense float64 outside the tensor cores (TFLOP/s; NVIDIA data sheets):
+# the rate of B1's float64 instance, whose multiply-adds are scalar DFMAs
+# (the FP64 tensor-core rate, twice this, is for matrix products).
+FP64_TFLOP_S = (("H100 NVL", 30.0), ("H100 PCIe", 26.0), ("H100", 34.0),
+                ("H200", 34.0))
 
 
 def synchronize(device: torch.device) -> None:
@@ -172,6 +180,14 @@ def card_peaks(device_name: str) -> CardPeaks:
     raise ValueError(f"peaks of {device_name!r} are not known")
 
 
+def fp64_tflop_s(device_name: str) -> float:
+    """The card's published float64 rate outside the tensor cores."""
+    for key, rate in FP64_TFLOP_S:
+        if key in device_name:
+            return rate
+    raise ValueError(f"peaks of {device_name!r} are not known")
+
+
 def hbm_bandwidth_gb_s(device_name: str) -> float:
     """The card's published HBM bandwidth in GB/s, from its name."""
     return card_peaks(device_name).hbm_gb_s
@@ -196,12 +212,12 @@ class KernelWork:
         return by_bytes, "bytes"
 
 
-def gauss_jordan_work(n: int, w: int) -> KernelWork:
-    """B1 on n systems of width w: read S (w x w) and e (w), write y (w).
-    Unpivoted Gauss–Jordan on [S | e] updates, at step k, columns
-    k + 1 .. w of the w - 1 other rows: (w - 1) w (w + 1) flops per
-    system."""
-    return KernelWork(bytes=4 * n * (w * w + 2 * w),
+def gauss_jordan_work(n: int, w: int, itemsize: int = 4) -> KernelWork:
+    """B1 on n systems of width w: read S (w x w) and e (w), write y (w),
+    ``itemsize`` bytes an element (4 float32, 8 float64).  Unpivoted
+    Gauss–Jordan on [S | e] updates, at step k, columns k + 1 .. w of the
+    w - 1 other rows: (w - 1) w (w + 1) flops per system."""
+    return KernelWork(bytes=itemsize * n * (w * w + 2 * w),
                       flops=(w - 1) * w * (w + 1) * n)
 
 

@@ -17,6 +17,15 @@ from deeppreconditioning_tpu_torch.data.fvm import (
     generate_sludge_case_3d,
 )
 from deeppreconditioning_tpu_torch.ops import amg
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
 
 
 def _systems():
@@ -38,7 +47,8 @@ def _systems():
     return out
 
 
-SYSTEMS = _systems()
+with numpy_assembly():
+    SYSTEMS = _systems()
 
 
 def _np(x):

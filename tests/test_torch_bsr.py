@@ -29,6 +29,15 @@ from deeppreconditioning_tpu_torch.ops.bsr_spmm import (
     check_bsr_args,
 )
 from deeppreconditioning_tpu_torch.sparse.bsr import BSRMatrix
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
 
 
 def _fvm():

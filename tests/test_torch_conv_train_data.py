@@ -29,6 +29,16 @@ from deeppreconditioning_tpu_torch.models import (
 )
 from deeppreconditioning_tpu_torch.models.sparse_unet import UNET_TOPOLOGY
 from deeppreconditioning_tpu_torch.train.__main__ import SubsetView
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 REPO = Path(__file__).resolve().parents[1]
 CASES, BATCH, SEED = 12, 2, 69

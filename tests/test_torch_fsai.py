@@ -10,6 +10,16 @@ from deeppreconditioning_tpu.ops import fsai as jax_fsai
 from deeppreconditioning_tpu_torch.data.datasets import _prepare_sample
 from deeppreconditioning_tpu_torch.data.fvm import generate_sludge_case
 from deeppreconditioning_tpu_torch.ops import fsai
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 N_PAD = 256
 RTOL = 1e-10

@@ -19,6 +19,16 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
 )
 from deeppreconditioning_tpu_torch.ops import fsai
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 CKPT = (Path(__file__).resolve().parents[1] / "assets" / "checkpoints_fsai"
         / "best.msgpack")
@@ -40,7 +50,8 @@ def _split():
     return ds.dof_pad, out
 
 
-N_PAD, CASES = _split()
+with numpy_assembly():
+    N_PAD, CASES = _split()
 WIDTH = max(fsai.pattern_col_width(c[2], c[3]) for c in CASES)
 
 

@@ -18,6 +18,14 @@ from deeppreconditioning_tpu_torch.data.datasets import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with fvm.numpy_assembly():
+        yield
+
+
 @pytest.fixture
 def numpy_assembly(monkeypatch):
     """Pin the reference to its numpy assembly, the path the port copies:

@@ -1,8 +1,10 @@
 """Kernel B1 (batched Gauss–Jordan) of the PyTorch port against the JAX
-reference: the plain version against ``_masked_gauss_jordan_xla`` (f64)
-and against the Pallas ``_gj_kernel`` in interpret mode (f32), the
-kernel's width instances and the exactness of its identity padding, the
-CUDA kernel against the plain version on a card, the kernel's argument
+reference: the plain version against ``_masked_gauss_jordan_xla`` (f64,
+at one width of every instance) and against the Pallas
+``_gj_kernel`` in interpret mode (f32), the kernel's width instances and
+the exactness of its identity padding in both dtypes, the CUDA kernel's
+float32 and float64 instances against the plain version on a card, the
+kernel's argument
 checks, the widths of the committed checkpoints, the no-fallback
 rule, and gradients: the plain version carries one, the kernel refuses
 operands that need one.
@@ -75,6 +77,23 @@ def test_plain_matches_xla_f64(w):
                                atol=1e-10)
 
 
+@pytest.mark.parametrize("w", [1, 16, 32, 48])
+def test_plain_matches_xla_f64_at_every_instance(w):
+    """The float64 instance's oracle at the instance widths that
+    ``test_plain_matches_xla_f64`` leaves out (with it, one width in each
+    instance of 1..63), against the reference's float64 elimination."""
+    import jax.numpy as jnp
+
+    from deeppreconditioning_tpu.ops.fsai import _masked_gauss_jordan_xla
+
+    a, e = _systems(w, 16, seed=400 + w)
+    ref = _masked_gauss_jordan_xla(jnp.asarray(a), jnp.asarray(e))
+    got = masked_gauss_jordan(torch.tensor(a), torch.tensor(e))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-10,
+                               atol=1e-12)
+
+
 @pytest.mark.parametrize("w", WIDTHS)
 def test_plain_matches_pallas_interpret_f32(w):
     import jax
@@ -105,18 +124,19 @@ def test_plain_matches_pallas_interpret_f32(w):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("w", [1, 4, 13, 24, 31, 32, 41, 63])
-def test_identity_padding_to_the_instance_width_is_exact(w):
+def test_identity_padding_to_the_instance_width_is_exact(w, dtype):
     """The kernel runs width w on instance width W >= w with identity rows
     and a zero right-hand side in slots w..W-1: the plain version on the
     padded systems gives y[:, :w] bit for bit, and zeros past w."""
     big = instance_width(w)
     a, e = _systems(w, 256, seed=300 + w)
-    sub = torch.tensor(a, dtype=torch.float32)
-    rhs = torch.tensor(e, dtype=torch.float32)
-    pad_sub = torch.eye(big).repeat(256, 1, 1)
+    sub = torch.tensor(a, dtype=dtype)
+    rhs = torch.tensor(e, dtype=dtype)
+    pad_sub = torch.eye(big, dtype=dtype).repeat(256, 1, 1)
     pad_sub[:, :w, :w] = sub
-    pad_rhs = torch.zeros((256, big))
+    pad_rhs = torch.zeros((256, big), dtype=dtype)
     pad_rhs[:, :w] = rhs
     want = masked_gauss_jordan_torch(sub, rhs)
     got = masked_gauss_jordan_torch(pad_sub, pad_rhs)
@@ -148,6 +168,23 @@ def test_cuda_kernel_matches_plain(w, cuda_device):
     assert _backend.launch_counts()["gauss_jordan"] == before + 1
     ref = masked_gauss_jordan_torch(sub, rhs)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", CUDA_WIDTHS)
+def test_cuda_kernel_f64_matches_plain(w, cuda_device):
+    """The float64 instance against the float64 plain version, at
+    chip_smoke's float64 bar."""
+    a, e = _systems(w, 1024, seed=500 + w)
+    sub = torch.tensor(a, dtype=torch.float64, device=cuda_device)
+    rhs = torch.tensor(e, dtype=torch.float64, device=cuda_device)
+    before = _backend.launch_counts()["gauss_jordan"]
+    got = masked_gauss_jordan(sub, rhs)
+    torch.cuda.synchronize()
+    assert _backend.launch_counts()["gauss_jordan"] == before + 1
+    assert got.dtype == torch.float64
+    ref = masked_gauss_jordan_torch(sub, rhs)
+    torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-12)
 
 
 def test_plain_version_carries_a_gradient():
@@ -215,15 +252,17 @@ def _args(n=4, w=6, dtype=torch.float32):
                                                             dtype=dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("w", [1, 31, 32, 41, MAX_WIDTH])
-def test_argument_checks_accept(w):
-    sub, e = _args(w=w)
+def test_argument_checks_accept(w, dtype):
+    sub, e = _args(w=w, dtype=dtype)
     check_gauss_jordan_args(_OnCard(sub), _OnCard(e))
 
 
 @pytest.mark.parametrize("case, match", [
     ("cpu", "CUDA device"),
-    ("float64", "float32 only"),
+    ("mixed_dtype", "one dtype"),
+    ("float16", "float32 or float64"),
     ("not_square", "must be"),
     ("rhs_shape", "e must be"),
     ("too_wide", "outside 1..63"),
@@ -235,8 +274,10 @@ def test_argument_checks_refuse(case, match):
     sub, e = _args()
     if case == "cpu":
         args = (sub, e)
-    elif case == "float64":
-        args = _args(dtype=torch.float64)
+    elif case == "mixed_dtype":
+        args = (sub, e.double())
+    elif case == "float16":
+        args = _args(dtype=torch.float16)
     elif case == "not_square":
         args = (torch.zeros((4, 6, 5)), e)
     elif case == "rhs_shape":

@@ -11,6 +11,16 @@ from deeppreconditioning_tpu import native as jax_native
 from deeppreconditioning_tpu.ops import ic0 as jax_ic0
 from deeppreconditioning_tpu_torch.data.fvm import generate_sludge_case
 from deeppreconditioning_tpu_torch.ops import ic0
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 # An SPD matrix (smallest eigenvalue 0.05) on which unshifted IC(0) meets
 # a non-positive pivot.
@@ -45,7 +55,8 @@ def _matrices():
     return out
 
 
-MATRICES = _matrices()
+with numpy_assembly():
+    MATRICES = _matrices()
 
 
 @pytest.mark.parametrize("name", sorted(MATRICES))
@@ -79,9 +90,10 @@ def test_jacobi_preconditioner_matches_jax():
                                   jax_ic0.jacobi_preconditioner(a))
 
 
-ICT_CASES = {f"sludge_{seed}": generate_sludge_case(
-    np.random.default_rng(seed), mesh_cells=1).matrix.tocsr()
-    for seed in (0, 5)}
+with numpy_assembly():
+    ICT_CASES = {f"sludge_{seed}": generate_sludge_case(
+        np.random.default_rng(seed), mesh_cells=1).matrix.tocsr()
+        for seed in (0, 5)}
 ICT_CASES["random_spd"] = MATRICES["random_spd"]
 
 

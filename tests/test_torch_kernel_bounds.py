@@ -13,6 +13,7 @@ from deeppreconditioning_tpu_torch.utils.profiling import (
     bsr_work,
     card_peaks,
     dia_work,
+    fp64_tflop_s,
     gauss_jordan_work,
     hbm_bandwidth_gb_s,
 )
@@ -57,6 +58,25 @@ def test_gauss_jordan_bounds_in_microseconds():
     assert gauss_jordan_work(131072, 63).flops / 67e12 * 1e6 == (
         pytest.approx(489.043, abs=1e-3))
     assert us[(262144, 13)] == pytest.approx(61.037, abs=1e-3)
+
+
+@pytest.mark.parametrize("n, w, nbytes, us", [
+    # float64: 8 N (w^2 + 2w) bytes against 3350 GB/s; the flops against
+    # 34 TFLOP/s (DFMA outside the tensor cores) stay below them
+    (896, 24, 8 * 896 * 624, 1.3352),  # residual parity's learned row
+    (131072, 24, 654311424, 195.317),
+    (131072, 41, 1848639488, 551.833),
+])
+def test_gauss_jordan_work_f64(n, w, nbytes, us):
+    work = gauss_jordan_work(n, w, itemsize=8)
+    assert (work.bytes, work.flops) == (nbytes,
+                                        (w - 1) * w * (w + 1) * n)
+    rate = fp64_tflop_s(CARD)
+    assert rate == 34.0
+    bound, roof = work.bound(card_peaks(CARD).hbm_gb_s, rate)
+    assert roof == "bytes" and bound * 1e6 == pytest.approx(us, abs=1e-3)
+    assert work.flops / (rate * 1e12) < bound
+    assert fp64_tflop_s("NVIDIA H100 PCIe") == 26.0
 
 
 @pytest.mark.parametrize("bands, n_pad, nbytes, flops", [

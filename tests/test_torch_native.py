@@ -24,6 +24,16 @@ from deeppreconditioning_tpu_torch.ops.sparse_conv import (
     build_conv_maps,
 )
 from deeppreconditioning_tpu_torch.ops.trisolve import compute_levels
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 CONV_LAYERS = [((2, 2), (1, 0)), ((2, 2), (0, 1)), ((1, 1), (0, 0)),
                ((3, 3), (1, 1)), ((5, 5), (2, 2))]

@@ -2,7 +2,9 @@
 package (and ``chip_smoke.py``) imports in a subprocess where those
 modules cannot be imported, the conv train stage's and the structured
 trainer's and scaling protocol's names, the batched probe, the mesh study
-and the one-off deployed setup included, and the host runtime it
+and the one-off deployed setup included, the distributed solver, the
+generate stage, the pipeline runner, the residual-parity report and the
+scaling bench too, and the host runtime it
 builds and loads there is its own (nothing under ``native/`` or
 ``deeppreconditioning_tpu/`` among the loaded shared objects)."""
 
@@ -32,7 +34,10 @@ for name in ("ops.ic0", "ops.trisolve", "ops.amg", "ops.banded_factor",
              "test", "data.datasets", "train.checkpoint", "config",
              "train.structured", "bench.large_solve", "ops.stencil",
              "data.poisson", "solvers.cg", "bench.batched_probe",
-             "compare_meshes"):
+             "compare_meshes", "parallel", "parallel.partition",
+             "parallel.multihost", "parallel.pcg", "parallel.block_jacobi",
+             "parallel.fsai", "sparse.csr", "generate_data", "repro",
+             "residual_parity", "scaling_bench"):
     assert pkg.__name__ + "." + name in sys.modules, name
 from deeppreconditioning_tpu_torch.data.datasets import (
     ConvPlans, RandomSPDDataSet, StAnDataSet, download_from_kaggle)
@@ -64,6 +69,16 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
 from deeppreconditioning_tpu_torch.ops.fsai import (
     fsai_factor_scipy, fsai_values_range, lookup_local_blocks,
     range_dense_factor, round_bf16)
+from deeppreconditioning_tpu_torch.parallel.pcg import (
+    exchange_slabs, gather_vector, pcg_sharded, sharded_matvec)
+from deeppreconditioning_tpu_torch.parallel.fsai import (
+    build_sharded_fsai, fsai_apply, make_fsai_poly_sharded_apply,
+    make_fsai_sharded_apply)
+from deeppreconditioning_tpu_torch.parallel.multihost import (
+    SolverWorld, backend_for, initialize_if_needed, initialize_single,
+    solver_world)
+from deeppreconditioning_tpu_torch.data.fvm import (
+    case_digests, generate_dataset, native_assembly, numpy_assembly)
 from deeppreconditioning_tpu_torch import native
 assert pkg.__name__ + ".native" in sys.modules
 assert native.available()  # builds and loads the host runtime
@@ -87,4 +102,4 @@ def test_port_imports_without_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 55
+    assert int(out.stdout.strip().splitlines()[-1]) >= 66

@@ -35,6 +35,16 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
     neural_fsai_from_checkpoint,
 )
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 CKPT = (Path(__file__).resolve().parents[1] / "assets" / "checkpoints_fsai"
         / "best.msgpack")

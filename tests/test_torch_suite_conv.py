@@ -44,6 +44,16 @@ from deeppreconditioning_tpu_torch.models import (
     plan_builder_for,
 )
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
 CHANNELS = (1, 16, 32, 64, 32, 16, 1)

@@ -48,6 +48,16 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
 )
 from deeppreconditioning_tpu_torch.ops.fsai import round_bf16
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 CKPT = irregular.CHECKPOINT
 RTOL = 1e-9

@@ -28,6 +28,16 @@ from deeppreconditioning_tpu_torch.data.fvm import (
     generate_sludge_case,
     save_case,
 )
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 ILU = ("incomplete_lu",)
 

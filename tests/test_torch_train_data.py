@@ -24,6 +24,16 @@ from deeppreconditioning_tpu_torch.data.fvm import (
 )
 from deeppreconditioning_tpu_torch.models import neural_fsai as nf
 from deeppreconditioning_tpu_torch.ops import fsai
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 CASES, BATCH, SEED = 12, 2, 69
 POWER, WIDTH = 3, 16  # tril(|A|^3) of the one-cell cases is 13 wide

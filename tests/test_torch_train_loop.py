@@ -39,6 +39,16 @@ from deeppreconditioning_tpu_torch.models import neural_fsai as nf
 from deeppreconditioning_tpu_torch.sparse.coo import BatchedCOO
 from deeppreconditioning_tpu_torch.train import trainer
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
+
 
 CASES, BATCH, SEED = 12, 2, 69
 POWER, WIDTH, HIDDEN, DEGREE = 3, 16, 16, 2

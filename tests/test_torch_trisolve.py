@@ -18,6 +18,15 @@ from deeppreconditioning_tpu_torch.data.fvm import (
 )
 from deeppreconditioning_tpu_torch.ops import trisolve
 from deeppreconditioning_tpu_torch.ops.ic0 import ic0_factor
+from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _numpy_fvm_assembly():
+    """The port's numpy FVM assembly: the route the reference's counts
+    and arrays held here were made on."""
+    with numpy_assembly():
+        yield
 
 
 @pytest.fixture(autouse=True)
@@ -38,7 +47,8 @@ def _factors():
     return out
 
 
-FACTORS = _factors()
+with numpy_assembly():
+    FACTORS = _factors()
 
 
 def _rhs(n_pad, n, seed=0):
