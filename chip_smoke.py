@@ -100,6 +100,21 @@ Phases (each raises on failure):
      read back equal to the model.  Then B1 against its plain version on
      one training batch's local systems (w 24, N 4 x 1024), timed as in
      phase 3;
+  4p. data-parallel training, after phase 4f and on its generated cases:
+     phase 4f's run through ``train --dp 1`` (``--init-from``,
+     ``--validate-init``, the same arguments) in an NCCL group of world
+     size 1 on the card, held as phase 4f's is (the JAX fixture, B1 once
+     per step and validation batch, no plain version, ``best.msgpack``)
+     and against phase 4f's step losses within DP_STEP_RTOL (bit for bit
+     expected; the largest difference printed), its step median beside
+     4f's and the all-reduce's time per step (CUDA events); then the
+     multichip dry run (``python -m deeppreconditioning_tpu_torch.dryrun``)
+     at world size 1: both train steps within 1e-5 of the single-device
+     loss, the halo PCG and the sharded poly-FSAI apply (B1 twice: the
+     NeuralFSAI step and its single-device loss).  The phase prints its
+     seconds and fails above DP_PHASE_SECONDS.  Then B1 against its plain
+     version on the dry run's local systems (w 16, N 128), timed as in
+     phase 3;
   4h. the conv families' training, after phase 4f and on its generated
      cases, through the train entry point (``python -m
      deeppreconditioning_tpu_torch.train --model PreconditionerNet`` and
@@ -338,6 +353,7 @@ from deeppreconditioning_tpu_torch.data.fvm import (  # noqa: E402
 from deeppreconditioning_tpu_torch import generate_data  # noqa: E402
 from deeppreconditioning_tpu_torch import residual_parity  # noqa: E402
 from deeppreconditioning_tpu_torch import scaling_bench  # noqa: E402
+from deeppreconditioning_tpu_torch import dryrun  # noqa: E402
 from deeppreconditioning_tpu_torch.parallel import multihost  # noqa: E402
 from deeppreconditioning_tpu_torch.solvers.cg import (  # noqa: E402
     ell_matvec,
@@ -382,6 +398,7 @@ from deeppreconditioning_tpu_torch.bench.spmv import (  # noqa: E402
 )
 from deeppreconditioning_tpu_torch.config import params_show  # noqa: E402
 from deeppreconditioning_tpu_torch.models.neural_fsai import (  # noqa: E402
+    FSAIPlanProvider,
     neural_fsai_case_plan,
     neural_fsai_from_checkpoint,
     scaled_tril,
@@ -394,6 +411,7 @@ from deeppreconditioning_tpu_torch.ops.dia_spmv import (  # noqa: E402
     dia_matvec,
 )
 from deeppreconditioning_tpu_torch.ops.fsai import (  # noqa: E402
+    RangeFSAIPlan,
     local_systems,
     lookup_local_blocks,
     pattern_col_width,
@@ -517,6 +535,10 @@ TRAIN_INIT = REPO / "tests" / "fixtures" / "torch_port" / "train_init.msgpack"
 # rounding of earlier updates.
 TRAIN_STEP0_RTOL, TRAIN_STEP_RTOL, TRAIN_VAL_RTOL = 1e-5, 1e-3, 1e-3
 TRAIN_ITERS_CASE, TRAIN_ITERS_MEAN = 1, 0.01
+# Phase 4p: --dp 1 against phase 4f, step by step (an all-reduce of one
+# rank and a weight of 1.0 are exact: bit for bit is expected)
+DP_STEP_RTOL = 1e-6
+DP_PHASE_SECONDS = 30.0
 CONV_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
                 / "conv_iterations.json")
 CONV_TRAIN_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
@@ -1886,15 +1908,12 @@ def compare_conv_applies(suite, failures):
           + f"; factor vs dense {rel:.3e}")
 
 
-def check_training_path(cases, card):
-    """Phase 4f: one flagship training epoch through the train entry
-    point against the JAX CPU float32 epoch; returns the launches and the
-    run."""
-    fixture = json.loads(TRAIN_FIXTURE.read_text())
-    out = RESULTS / "train"
+def training_args(fixture, out, *extra):
+    """The train entry point's arguments of phase 4f (and 4p, with
+    ``extra``), checked against the training fixture's run."""
     args = train_entry.parse_args([
         "--init-from", str(TRAIN_INIT), "--checkpoint-dir", str(out),
-        "--metrics-dir", str(out / "metrics"), "--validate-init"])
+        "--metrics-dir", str(out / "metrics"), "--validate-init", *extra])
     cfg = fixture["config"]
     params = args.params
     if ((fixture["seed"], fixture["cases"], fixture["mesh_cells"]) != (
@@ -1906,13 +1925,14 @@ def check_training_path(cases, card):
                        "select_by": args.select_by, "seed": params.seed}):
         raise AssertionError("the training fixture describes another run")
     (out / "metrics" / "metrics.jsonl").unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    _backend.reset_launch_counts()
-    run = train_entry.run(args, cases=cases)
-    launches = _backend.launch_counts()
-    hold_host("train")
-    plain = _backend.plain_cuda_counts()
-    wall_s = time.perf_counter() - t0
+    return args
+
+
+def hold_training(label, run, launches, plain, out, fixture, wall_s,
+                  card):
+    """Phase 4f's holds on one flagship training run through the entry
+    point (``run``, its B1 ``launches`` and ``plain`` calls, its folder
+    ``out``) against the JAX CPU float32 epoch; returns the failures."""
     data_set, state = run.data_set, run.state
     if (fixture["n_pad"], fixture["nnz0_pad"], fixture["split_cases"]) != (
             data_set.dof_pad, data_set.nnz0_pad,
@@ -1928,7 +1948,7 @@ def check_training_path(cases, card):
     rel = np.abs(losses - ref) / np.abs(ref)
     expected = fixture["train_batches"] + 2 * fixture["val_batches"]
     step_ms = np.median(epoch["step_seconds"]) * 1e3
-    print(f"training path: {len(data_set)} batches of "
+    print(f"{label}: {len(data_set)} batches of "
           f"{data_set.batch_size}, n_pad {data_set.dof_pad}, plan kind "
           f"{run.plan_provider.kind}; {wall_s:.1f} s wall (split, plans, "
           f"init validation, epoch, checkpoints); epoch {epoch['seconds']:.2f}"
@@ -1981,9 +2001,97 @@ def check_training_path(cases, card):
                      params_to_jax(state.model.state_dict())) or (
                          payload["step"] != state.step):
         failures.append("best.msgpack does not hold the trained model")
+    return failures
+
+
+def check_training_path(cases, card):
+    """Phase 4f: one flagship training epoch through the train entry
+    point against the JAX CPU float32 epoch; returns the launches and the
+    run."""
+    fixture = json.loads(TRAIN_FIXTURE.read_text())
+    out = RESULTS / "train"
+    args = training_args(fixture, out)
+    t0 = time.perf_counter()
+    _backend.reset_launch_counts()
+    run = train_entry.run(args, cases=cases)
+    launches = _backend.launch_counts()
+    hold_host("train")
+    plain = _backend.plain_cuda_counts()
+    failures = hold_training("training path", run, launches, plain, out,
+                             fixture, time.perf_counter() - t0, card)
     if failures:
         raise AssertionError("; ".join(failures))
     return launches, run
+
+
+def check_dp_training(cases, card, single):
+    """Phase 4p: phase 4f's run through ``train --dp 1`` (an NCCL group
+    of world size 1 on the card), held as phase 4f's is and against
+    phase 4f's step losses (``single``: its run), with the all-reduce's
+    time per step; then the multichip dry run at world size 1.  Returns
+    the launches of the training and of the dry run."""
+    t_phase = time.perf_counter()
+    fixture = json.loads(TRAIN_FIXTURE.read_text())
+    out = RESULTS / "train_dp"
+    args = training_args(fixture, out, "--dp", "1")
+    t0 = time.perf_counter()
+    _backend.reset_launch_counts()
+    run = train_entry.run(args, cases=cases)
+    launches = _backend.launch_counts()
+    hold_host("train-dp")
+    plain = _backend.plain_cuda_counts()
+    failures = hold_training("dp training path (--dp 1)", run, launches,
+                             plain, out, fixture, time.perf_counter() - t0,
+                             card)
+    epoch, one = run.state.epochs[-1], single.state.epochs[-1]
+    losses = np.asarray(epoch["step_losses"])
+    ref = np.asarray(one["step_losses"])
+    diff = np.abs(losses - ref)
+    equal = bool((diff == 0).all())
+    allreduce = np.asarray(epoch["allreduce_ms"])
+    print(f"  {run.backend} group of world size {run.world.size} on "
+          f"{run.world.device}: step losses against phase 4f's: largest "
+          f"|delta| {diff.max():.3e}, rel {(diff / np.abs(ref)).max():.3e} "
+          f"(limit {DP_STEP_RTOL}; bit for bit: {equal}); train step "
+          f"median {np.median(epoch['step_seconds']) * 1e3:.3f} ms against "
+          f"phase 4f's {np.median(one['step_seconds']) * 1e3:.3f} ms; "
+          f"all-reduce per step {np.median(allreduce):.4f} ms median (min "
+          f"{allreduce.min():.4f}, max {allreduce.max():.4f}; CUDA events, "
+          f"{allreduce.size} of {losses.size} steps) [{card}]")
+    if run.backend != "nccl" or run.world.size != 1:
+        failures.append(f"backend {run.backend}, world {run.world}")
+    if not (diff <= DP_STEP_RTOL * np.abs(ref)).all():
+        failures.append(f"dp step losses off phase 4f's by {diff.max()}")
+    if allreduce.size != losses.size:
+        failures.append(f"{allreduce.size} all-reduces, {losses.size} steps")
+    if torch.distributed.is_initialized():
+        failures.append("the train entry point left its group")
+    del run
+    t0 = time.perf_counter()
+    _backend.reset_launch_counts()
+    result = dryrun.main([])
+    torch.cuda.synchronize()
+    dry_launches = _backend.launch_counts()
+    dry_plain = _backend.plain_cuda_counts()
+    hold_host("dryrun")
+    print(f"  dry run at world size {result['world_size']}: conv step "
+          f"{result['conv_loss']:.6f} (one device {result['conv_single']:.6f})"
+          f", NeuralFSAI step {result['fsai_loss']:.6f} (one device "
+          f"{result['fsai_single']:.6f}, {result['plan_kind']} plans), halo "
+          f"PCG {result['pcg_iterations']} iterations residual "
+          f"{result['pcg_residual']:.2e}, poly-FSAI {result['poly_iterations']}"
+          f" iterations (dense M {result['poly_single_iterations']}); B1 "
+          f"launches {dry_launches['gauss_jordan']}, plain versions "
+          f"{dry_plain}; {time.perf_counter() - t0:.1f} s [{card}]")
+    if dry_launches["gauss_jordan"] != 2 or any(dry_plain.values()):
+        failures.append(f"the dry run's B1: {dry_launches}, {dry_plain}")
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 4p (dp training and dry run): {seconds:.1f} s [{card}]")
+    if seconds > DP_PHASE_SECONDS:
+        failures.append(f"phase 4p took {seconds:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches, dry_launches
 
 
 def check_conv_training(cases, card):
@@ -2130,6 +2238,32 @@ def check_gauss_jordan_training(run, card):
             f"B1 on a training batch's local systems "
             f"({batch.features.shape[0]} cases, N {n}, w {w}; max abs err "
             f"{err:.3e}, rtol {GJ_RTOL}, atol {GJ_ATOL})",
+            lambda: masked_gauss_jordan(sub, e),
+            lambda: masked_gauss_jordan_torch(sub, e),
+            lambda: torch.linalg.solve_ex(sub, e[..., None]),
+            gauss_jordan_work(n, w), sub.device, card)
+    return err, rec
+
+
+def check_gauss_jordan_dryrun(dev, card):
+    """B1 against its plain version on the local systems of the dry
+    run's NeuralFSAI step at world size 1 (one case of dof 16, w 16)."""
+    ds = dryrun._random_spd(1, 1, None, dev)
+    provider = FSAIPlanProvider(ds, power=2, width=16)
+    batch = ds[0]
+    plans = provider(0, batch)
+    if not isinstance(plans, RangeFSAIPlan):
+        raise AssertionError("the dry run's plans are not range plans")
+    with torch.no_grad():
+        a_full = symmetrize_tril(batch.systems.to_dense())
+        sub, e = local_systems(plans, range_local_blocks(plans, a_full))
+        w = sub.shape[-1]
+        sub, e = sub.reshape(-1, w, w), e.reshape(-1, w)
+        n = sub.shape[0]
+        err = check_gauss_jordan_on(sub, e, f"the dry run (N {n})")
+        rec = measure(
+            f"B1 on the dry run's NeuralFSAI step (N {n}, w {w}; max abs "
+            f"err {err:.3e}, rtol {GJ_RTOL}, atol {GJ_ATOL})",
             lambda: masked_gauss_jordan(sub, e),
             lambda: masked_gauss_jordan_torch(sub, e),
             lambda: torch.linalg.solve_ex(sub, e[..., None]),
@@ -2850,7 +2984,12 @@ def main() -> None:
     train_launches, train_run = check_training_path(cases, card)
     gj_train_err, _ = check_gauss_jordan_training(train_run, card)
     gj_err = max(gj_err, gj_train_err)
+
+    # 4p. the same epoch through train --dp 1 (NCCL, world size 1); the
+    # multichip dry run at world size 1
+    dp_launches, dryrun_launches = check_dp_training(cases, card, train_run)
     del train_run
+    gj_err = max(gj_err, check_gauss_jordan_dryrun(dev, card)[0])
 
     # 4h. the conv families' training on the same generated cases
     conv_train_launches = check_conv_training(cases, card)
@@ -2935,7 +3074,8 @@ def main() -> None:
 
     # 5. records
     paths = {"per-case": {"gauss_jordan": launches},
-             "train": train_launches, "conv": conv_launches,
+             "train": train_launches, "train-dp": dp_launches,
+             "dryrun": dryrun_launches, "conv": conv_launches,
              "conv-train": conv_train_launches,
              "batched": batched_launches, "irregular": irregular_launches,
              "irregular-batched": irregular_batched_launches,

@@ -292,13 +292,17 @@ class DeviceBatch(NamedTuple):
     # per layer, batched (B, ...) and padded to the data set's level
     # buckets; None without specs
     plans: Tuple[LayerPlan, ...] | None = None
+    # (start, stop) of a rank's share of the batch's cases
+    # (``PlannedDataSet.share``); None for the whole batch
+    span: Tuple[int, int] | None = None
 
 
 class PlannedDataSet:
     """The trainer's view of a split: host samples, shuffled once with
     ``random.Random(seed)`` (the reference's folder shuffle), served as
     ``DeviceBatch``es of ``batch_size`` consecutive samples (a trailing
-    partial batch is dropped).
+    partial batch is dropped); ``share`` serves a rank's contiguous part
+    of a batch's cases as a batch of its own (data-parallel training).
 
     This class reads the sludge-pattern or frame cases (``family``) from
     ``root`` or ``cases``; ``order`` holds the split's case indices in
@@ -368,9 +372,35 @@ class PlannedDataSet:
             self._batches[index] = self._build_batch(index)
         return self._batches[index]
 
-    def _build_batch(self, index: int) -> DeviceBatch:
-        span = range(index * self.batch_size, (index + 1) * self.batch_size)
-        members = [self._host[i] for i in span]
+    def share(self, index: int, cases: range) -> DeviceBatch | None:
+        """A rank's share of batch ``index``: its cases ``cases`` (a
+        contiguous range within the batch, ``data_parallel.case_span``)
+        as a ``DeviceBatch`` of their own, built from those members as a
+        whole batch is (the data set's ``nnz0_pad``, ``dof_pad`` and level
+        buckets; the COO's batch column counts from 0 within the share)
+        and kept.  The whole range is the batch itself; an empty one is
+        None."""
+        if index < 0 or index >= len(self):
+            raise IndexError(index)
+        start, stop = cases.start, cases.stop
+        if not 0 <= start <= stop <= self.batch_size or cases.step != 1:
+            raise ValueError(f"cases {cases} not a span of a batch of "
+                             f"{self.batch_size}")
+        if start == stop:
+            return None
+        if stop - start == self.batch_size:
+            return self[index]
+        key = (index, start, stop)
+        if key not in self._batches:
+            self._batches[key] = self._build_batch(index, (start, stop))
+        return self._batches[key]
+
+    def _build_batch(self, index: int,
+                     span: Tuple[int, int] | None = None) -> DeviceBatch:
+        first = index * self.batch_size
+        lo, hi = (0, self.batch_size) if span is None else span
+        cases = range(first + lo, first + hi)
+        members = [self._host[i] for i in cases]
         b, nnz0 = len(members), self.nnz0_pad
         feats = np.zeros((b, nnz0), np.float64)
         rows = np.zeros((b, nnz0), np.int64)
@@ -397,7 +427,7 @@ class PlannedDataSet:
         plans = None
         if self._plans is not None:
             plans = tuple(p.to(self.device)
-                          for p in self._plans.stacked(span))
+                          for p in self._plans.stacked(cases))
         return DeviceBatch(
             features=dev(feats[..., None], self.dtype),
             sites=Sites(dev(rows), dev(cols), dev(valid)),
@@ -410,6 +440,7 @@ class PlannedDataSet:
             original_sizes=tuple(h.original_size for h in members),
             index=index,
             plans=plans,
+            span=span,
         )
 
 

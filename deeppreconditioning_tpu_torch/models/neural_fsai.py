@@ -357,8 +357,13 @@ class FSAIPlanProvider:
     group goes to the dataset's device.  ``kind`` "auto" settles on
     "range" at the first sample whose range plan builds, else on
     "generic", for good.  Plans are cached per batch index in the
-    dataset (``batch.index``), so each is built once and reused every
-    epoch.
+    dataset (``batch.index``) and share of its cases (``batch.span``), so
+    each is built once and reused every epoch.
+
+    A rank's share (data-parallel training) must not settle "auto" on
+    its own first case, which differs between ranks: ``settle`` decides
+    it on a whole batch, as a single device's first call would, and a
+    share's plans are refused while the kind is still "auto".
     """
 
     def __init__(self, dataset, power: int = 3, width: int = 16,
@@ -400,12 +405,26 @@ class FSAIPlanProvider:
             r0, c0, pr, pc, n_pad, width=self.width, sentinel=sentinel
         )
 
+    def settle(self, batch) -> str:
+        """Settle "auto" on ``batch``'s first case, as the first call on
+        that whole batch would; returns the kind."""
+        if self.kind == "auto":
+            sites = [np.asarray(x[0].cpu()) for x in batch.sites]
+            self._sample_plan(*sites, batch.solutions.shape[1],
+                              batch.features.shape[1])
+        return self.kind
+
     def __call__(self, index: int, batch):
         # keyed on the batch's index in the dataset, not ``index``: split
         # views renumber their batches from 0
         del index
-        if batch.index in self._cache:
-            return self._cache[batch.index]
+        key = (batch.index if batch.span is None
+               else (batch.index, batch.span))
+        if key in self._cache:
+            return self._cache[key]
+        if batch.span is not None and self.kind == "auto":
+            raise ValueError("a share of a batch needs the plan kind "
+                             "settled on a whole batch first (settle)")
         sites = [np.asarray(x.cpu()) for x in batch.sites]
         n_pad = batch.solutions.shape[1]
         sentinel = batch.features.shape[1]
@@ -414,5 +433,5 @@ class FSAIPlanProvider:
             for rows, cols, valid in zip(*sites)
         ]
         plan = stack_plans(plans).to(self.dataset.device)
-        self._cache[batch.index] = plan
+        self._cache[key] = plan
         return plan

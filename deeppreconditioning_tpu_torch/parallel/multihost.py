@@ -1,4 +1,5 @@
-"""Process-group start-up and the rank/world description of the solver.
+"""Process-group start-up and the rank/world description of the solver
+and the data-parallel trainer.
 
 Counterpart of ``deeppreconditioning_tpu/parallel/multihost.py`` on
 ``torch.distributed``.  The reference starts ``jax.distributed`` from
@@ -12,10 +13,14 @@ standard env:// variables (``MASTER_ADDR``, ``MASTER_PORT``,
 
 The backend follows the device the caller passes: NCCL for a CUDA
 device, gloo for the CPU.  It is never chosen by probing for a GPU, and
-nothing falls back from one to the other.  ``SolverWorld`` takes the
-place of the reference's ``solver_mesh`` / ``make_mesh``: the rank, the
-shard count, the device and the group the solver's collectives use.
-There is no device mesh.
+nothing falls back from one to the other: a CUDA rank without NCCL
+raises.  ``SolverWorld`` takes the place of the reference's
+``solver_mesh`` / ``make_mesh``: the rank, the shard count, the device
+and the group the solver's collectives use; ``train_world`` gives the
+same description to the data-parallel trainer, as the reference's
+``train_mesh`` gives its ``dp`` mesh.  ``rank_device`` puts each rank
+of a host on its own card (``cuda:$LOCAL_RANK``).  There is no device
+mesh.
 """
 
 from __future__ import annotations
@@ -60,9 +65,26 @@ def backend_for(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
+def rank_device(device) -> torch.device:
+    """This rank's device: for "cuda" the card of ``LOCAL_RANK`` (0 when
+    unset, as for a process started alone), for "cpu" the CPU.  Raises
+    without a card when the caller asks for one."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's main path runs on the GPU only")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+
+
 def _start(device, **kwargs) -> None:
     device = torch.device(device)
     if device.type == "cuda":
+        if not dist.is_nccl_available():
+            raise RuntimeError("a CUDA rank needs NCCL, and this torch "
+                               "has none")
+        # B1 launches on the current stream of the rank's device
         torch.cuda.set_device(device)
     dist.init_process_group(backend=backend_for(device), **kwargs)
 
@@ -114,6 +136,14 @@ def solver_world(device, n_shards: int | None = None) -> SolverWorld | None:
         return None
     return SolverWorld(rank=rank, size=size, device=torch.device(device),
                        group=group)
+
+
+def train_world(device, dp: int | None = None) -> SolverWorld | None:
+    """The data-parallel trainer's world over the first ``dp`` ranks of
+    the default group (all of them by default): the reference's
+    ``train_mesh(dp)``.  Every rank must call it; a rank outside the
+    first ``dp`` gets None."""
+    return solver_world(device, dp)
 
 
 def shutdown() -> None:

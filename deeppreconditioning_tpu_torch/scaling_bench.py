@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import csv
-import os
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable
@@ -50,7 +49,6 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from deeppreconditioning_tpu_torch import _backend
 from deeppreconditioning_tpu_torch.ops.fsai import (
     FSAIPlan,
     build_fsai_plan,
@@ -263,11 +261,7 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--out", type=Path, default=None)
     args = parser.parse_args(argv)
-    if args.device == "cuda":
-        _backend.device()  # the card, or raise
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    else:
-        device = torch.device("cpu")
+    device = multihost.rank_device(args.device)  # the card, or raise
     if not multihost.initialize_if_needed(device):
         multihost.initialize_single(device)
     try:

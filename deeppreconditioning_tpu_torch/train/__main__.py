@@ -1,16 +1,28 @@
 """The port's train stage.
 
     python -m deeppreconditioning_tpu_torch.train [--model NAME]
-        [--device cpu] [--max-epochs N] ...
+        [--device cpu] [--max-epochs N] [--dp N] ...
+    torchrun --nproc-per-node N -m deeppreconditioning_tpu_torch.train \
+        --dp N ...
 
-Counterpart of ``scripts/train.py`` (without its ``--dp``; ``--device
-cpu`` is the explicit CPU request, and without it the run needs the
-card).  ``--model`` (default ``params.yaml``'s ``model``, NeuralFSAI)
-picks the family, as the reference script does.
+Counterpart of ``scripts/train.py`` (``--device cpu`` is the explicit
+CPU request, and without it the run needs the card).  ``--model``
+(default ``params.yaml``'s ``model``, NeuralFSAI) picks the family, as
+the reference script does.
+
+``--dp N`` trains data-parallel over N ranks, for either family, as the
+reference scripts' ``--dp`` does over N devices: 0 (the default) starts
+no process group; N >= 1 reads the env:// variables ``torchrun
+--nproc-per-node N`` sets (their ``WORLD_SIZE`` must be N), or, with
+none set and N = 1, starts a group of this process alone.  Each rank
+takes the card of its ``LOCAL_RANK`` (NCCL; gloo with ``--device
+cpu``), its share of every batch, and the global batch's step
+(``parallel/data_parallel``); rank 0 alone prints, logs and writes the
+checkpoints.  The group is destroyed at the end.
 
 ``--model PreconditionerNet`` or ``PreconditionerSparseUNet`` trains a
-conv model (``trainer.train``) with the reference script's flags less
-``--dp``: ``--max-epochs N``, ``--loss NAME`` (default ``params.loss``),
+conv model (``trainer.train``) with the reference script's flags:
+``--max-epochs N``, ``--dp N``, ``--loss NAME`` (default ``params.loss``),
 ``--select-by loss|iterations``, ``--lr LR`` (default
 ``params.learning_rate``), ``--checkpoint-dir DIR``, ``--metrics-dir
 DIR``, ``--init-from CKPT``; and the port's ``--device``, ``--family``
@@ -23,7 +35,7 @@ cases as ``PlannedDataSet``, or ``StAnDataSet``) with
 
 Without a conv ``--model`` it trains the NeuralFSAI family
 (``trainer.train_neural_fsai``), as ``scripts/train_fsai.py`` (without
-its ``--dp`` and ``--platform``): ``[--loss NAME] [--pcg-steps K]
+its ``--platform``): ``[--dp N] [--loss NAME] [--pcg-steps K]
 [--width W] [--power P] [--poly-degree D] [--hidden H] [--lr LR]
 [--patience N] [--checkpoint-dir DIR] [--metrics-dir DIR] [--select-by
 loss|iterations] [--init-from CKPT] [--family F] [--plan-kind
@@ -50,6 +62,7 @@ validation loss and mean iterations, epoch seconds and B1 launches.
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 from typing import NamedTuple
 
@@ -66,6 +79,7 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
     FSAIPlanProvider,
     NeuralFSAI,
 )
+from deeppreconditioning_tpu_torch.parallel import multihost
 from deeppreconditioning_tpu_torch.train.trainer import (
     CONV_LOSSES,
     FSAI_LOSSES,
@@ -93,6 +107,10 @@ class SubsetView:
     def __getitem__(self, i: int):
         return self.base[self.indices[i]]
 
+    def share(self, i: int, cases: range):
+        """Cases ``cases`` of batch ``i`` (``PlannedDataSet.share``)."""
+        return self.base.share(self.indices[i], cases)
+
 
 def parse_args(argv=None) -> argparse.Namespace:
     params = params_show(REPO / "params.yaml")
@@ -112,6 +130,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--init-from", type=Path, default=None,
                         help="start from this checkpoint's params (same "
                         "model settings), with a fresh optimizer")
+    parser.add_argument("--dp", type=int, default=0,
+                        help="data-parallel ranks (0 = single device, no "
+                        "process group; N >= 1 under torchrun "
+                        "--nproc-per-node N, or 1 alone)")
     if model in CONV_FAMILIES:
         results = RESULTS / model
         parser.add_argument("--loss", default=params.loss,
@@ -174,6 +196,8 @@ class TrainRun(NamedTuple):
     state: TrainState
     data_set: PlannedDataSet  # the whole train split
     plan_provider: FSAIPlanProvider | None  # NeuralFSAI only
+    world: multihost.SolverWorld | None = None  # with --dp N >= 1
+    backend: str | None = None  # the process group's, with --dp N >= 1
 
 
 def _split(full: PlannedDataSet):
@@ -204,18 +228,67 @@ def _conv_data_set(args, device, cases) -> PlannedDataSet:
     )
 
 
+def start_world(dp: int, device: torch.device) -> bool:
+    """Start the process group ``--dp`` asks for; returns whether one
+    was started.  0: none.  N >= 1: from env:// when ``torchrun`` set
+    its variables (``WORLD_SIZE`` must be N), else, for N = 1 only, a
+    group of this process alone."""
+    if dp < 0:
+        raise ValueError(f"--dp {dp}: give 0 (no process group) or the "
+                         "number of ranks")
+    if dp == 0 or torch.distributed.is_initialized():
+        return False
+    if all(os.environ.get(k) for k in multihost.ENV_KEYS):
+        size = int(os.environ["WORLD_SIZE"])
+        if size != dp:
+            raise ValueError(f"--dp {dp} in a world of {size} ranks: run "
+                             f"torchrun --nproc-per-node {dp}")
+        return multihost.initialize_if_needed(device)
+    if dp != 1:
+        raise ValueError(
+            f"--dp {dp} needs {dp} ranks: run torchrun --nproc-per-node "
+            f"{dp} (none of {', '.join(multihost.ENV_KEYS)} may be unset)")
+    multihost.initialize_single(device)
+    return True
+
+
 def run(args: argparse.Namespace, cases=None) -> TrainRun:
     """Build the split (and the plan provider) and the model on the
     device, and train; ``cases`` (in-memory cases in generation order)
-    skips the disk and the generation."""
-    device = (torch.device("cpu") if args.device == "cpu"
-              else _backend.device())
+    skips the disk and the generation.  With ``--dp N >= 1`` the
+    training runs in a process group of N ranks (``start_world``),
+    destroyed at the end if this call started it."""
+    dp = args.dp
+    if args.device == "cpu":
+        device = torch.device("cpu")
+    else:
+        device = multihost.rank_device("cuda") if dp else _backend.device()
+    started = start_world(dp, device)
+    try:
+        world = None
+        if dp:
+            if torch.distributed.get_world_size() != dp:
+                raise ValueError(f"--dp {dp} in a world of "
+                                 f"{torch.distributed.get_world_size()}")
+            world = multihost.train_world(device, dp)
+        backend = torch.distributed.get_backend() if dp else None
+        train_run = _train(args, device, cases, world)
+        return train_run._replace(world=world, backend=backend)
+    finally:
+        if started:
+            multihost.shutdown()
+
+
+def _train(args, device, cases, world) -> TrainRun:
     params = args.params
+    lead = world is None or world.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    on_epoch = print_epoch if lead else None
     if args.model in CONV_FAMILIES:
         full = _conv_data_set(args, device, cases)
-        print(f"{args.model}: {len(full)} batches of {full.batch_size}, "
-              f"n_pad {full.dof_pad}, level buckets {full.level_buckets}; "
-              f"plans {full.plan_seconds:.2f} s (untimed prep)", flush=True)
+        say(f"{args.model}: {len(full)} batches of {full.batch_size}, "
+            f"n_pad {full.dof_pad}, level buckets {full.level_buckets}; "
+            f"plans {full.plan_seconds:.2f} s (untimed prep)", flush=True)
         model = get_model_class(args.model)(
             channels=tuple(params.channels)).to(device)
         state = train(
@@ -230,7 +303,8 @@ def run(args: argparse.Namespace, cases=None) -> TrainRun:
             schedule=params.schedule,
             select_by=args.select_by,
             init_from=args.init_from,
-            on_epoch=print_epoch,
+            on_epoch=on_epoch,
+            world=world,
         )
         return TrainRun(state, full, None)
     if cases is None:
@@ -256,13 +330,16 @@ def run(args: argparse.Namespace, cases=None) -> TrainRun:
         select_by=args.select_by,
         init_from=args.init_from,
         validate_init=args.validate_init,
-        on_epoch=print_epoch,
+        on_epoch=on_epoch,
+        world=world,
     )
     return TrainRun(state, full, provider)
 
 
 def main() -> None:
-    print(f"final step: {run(parse_args()).state.step}")
+    train_run = run(parse_args())
+    if train_run.world is None or train_run.world.rank == 0:
+        print(f"final step: {train_run.state.step}")
 
 
 if __name__ == "__main__":

@@ -25,9 +25,19 @@ products (L L^T, M, the unrolled PCG of ``pcg_loss``, the backward) are
 full-float32 ``torch.matmul`` on the card.  Validation solves the batch
 with the batched PCG and a dense M (``max_iter`` 1024).
 
-The reference's ``mesh`` argument (data-parallel training over a device
-mesh, ``dp_shard``) has no counterpart yet: it waits for the port's
-``parallel/`` package.
+Both trainers take ``world`` (``parallel.multihost.train_world``), the
+reference's ``mesh``: data-parallel training over ranks, one process on
+one device each (``parallel/data_parallel``).  Every rank starts from
+rank 0's parameters, trains on its contiguous share of every batch's
+cases (``PlannedDataSet.share``; conv plans and NeuralFSAI plans of its
+cases only, built outside the timed step) with its loss weighted to the
+global batch's, and takes Adam's step on the gradients of the global
+batch after one SUM all-reduce that also carries the loss, so each step
+is the whole batch's, as under the reference's GSPMD.  Rank 0 alone
+validates (the whole validation set, as the reference does), logs and
+writes the checkpoints, and sends every rank the criterion, so all stop
+on the same epoch.  With ``world`` None the trainers are the
+single-device loop.
 """
 
 from __future__ import annotations
@@ -57,6 +67,15 @@ from deeppreconditioning_tpu_torch.models.precond_net import (
     output_to_dense,
 )
 from deeppreconditioning_tpu_torch.ops.fsai import RangeFSAIPlan
+from deeppreconditioning_tpu_torch.parallel.data_parallel import (
+    CollectiveClock,
+    RankShares,
+    all_reduce_gradients,
+    broadcast_floats,
+    broadcast_parameters,
+    case_span,
+    loss_weight,
+)
 from deeppreconditioning_tpu_torch.solvers.cg import (
     batched_preconditioned_conjugate_gradient,
 )
@@ -179,18 +198,51 @@ def conv_loss(model, batch, loss: str = "inverse_loss",
     return metrics_lib.condition_loss(a_tril, l_dense)
 
 
+def _optimize(model, optimizer: torch.optim.Optimizer, objective,
+              loss: str, n_local: int, world=None, n_global: int = 0,
+              clock: CollectiveClock | None = None) -> torch.Tensor:
+    """Zero the gradients, back-propagate ``objective()`` and take the
+    optimizer's step; returns the loss, detached.  With ``world``, the
+    objective is this rank's loss on its ``n_local`` of ``n_global``
+    cases (None: no case), weighted by ``loss_weight`` before its
+    backward; the gradients and the loss are then all-reduced, and the
+    returned loss is the global batch's."""
+    optimizer.zero_grad(set_to_none=True)
+    if world is None:
+        value = objective()
+        value.backward()
+        optimizer.step()
+        return value.detach()
+    local = None
+    if objective is not None:
+        local = objective()
+        weight = loss_weight(loss, n_local, n_global)
+        if weight != 1.0:
+            local = local * weight
+        local.backward()
+    value = all_reduce_gradients(model, world, local, clock)
+    optimizer.step()
+    return value
+
+
 def train_step(model, optimizer: torch.optim.Optimizer, batch,
                loss: str = "inverse_loss",
                generator: torch.Generator | None = None,
-               probes: torch.Tensor | None = None) -> torch.Tensor:
+               probes: torch.Tensor | None = None, world=None,
+               n_global: int = 0,
+               clock: CollectiveClock | None = None) -> torch.Tensor:
     """One optimization step of a conv model (forward, loss, backward,
     Adam); returns the loss at the parameters before the update,
-    detached."""
-    optimizer.zero_grad(set_to_none=True)
-    value = conv_loss(model, batch, loss, generator, probes)
-    value.backward()
-    optimizer.step()
-    return value.detach()
+    detached.  With ``world``, ``batch`` is this rank's share of a batch
+    of ``n_global`` cases (None when it has none) and the step is the
+    whole batch's (``_optimize``)."""
+    objective = None
+    if batch is not None:
+        def objective():
+            return conv_loss(model, batch, loss, generator, probes)
+    n_local = 0 if batch is None else batch.features.shape[0]
+    return _optimize(model, optimizer, objective, loss, n_local, world,
+                     n_global, clock)
 
 
 @torch.no_grad()
@@ -265,15 +317,23 @@ def fsai_train_step(model, optimizer: torch.optim.Optimizer, plans,
                     feats: torch.Tensor, a_tril: torch.Tensor,
                     rhs: torch.Tensor | None = None,
                     loss: str = "inverse_loss",
-                    pcg_steps: int = 16) -> torch.Tensor:
+                    pcg_steps: int = 16, world=None, n_global: int = 0,
+                    clock: CollectiveClock | None = None) -> torch.Tensor:
     """One optimization step (forward, loss, backward, Adam); returns the
-    loss at the parameters before the update, detached."""
-    operands = _fsai_operands(plans, feats, a_tril)
-    optimizer.zero_grad(set_to_none=True)
-    value = fsai_loss(model, plans, operands, a_tril, rhs, loss, pcg_steps)
-    value.backward()
-    optimizer.step()
-    return value.detach()
+    loss at the parameters before the update, detached.  With ``world``
+    the operands are this rank's share of a batch of ``n_global`` cases
+    (``plans`` None when it has none) and the step is the whole batch's
+    (``_optimize``)."""
+    objective, n_local = None, 0
+    if plans is not None:
+        operands = _fsai_operands(plans, feats, a_tril)
+        n_local = feats.shape[0]
+
+        def objective():
+            return fsai_loss(model, plans, operands, a_tril, rhs, loss,
+                             pcg_steps)
+    return _optimize(model, optimizer, objective, loss, n_local, world,
+                     n_global, clock)
 
 
 @torch.no_grad()
@@ -364,6 +424,19 @@ def resume_state(path: Path, model, optimizer: torch.optim.Adam) -> int:
 # -- the epoch loop -----------------------------------------------------------
 
 
+def _data_parallel(model, train_set, world):
+    """(the split the epoch loop reads, this rank's cases of a batch, the
+    all-reduce clock): ``train_set`` itself, None and None without
+    ``world``; with it, rank 0's parameters on every rank and the split
+    as this rank's shares."""
+    if world is None:
+        return train_set, None, None
+    broadcast_parameters(model, world)
+    cases = case_span(train_set.batch_size, world.rank, world.size)
+    return (RankShares(train_set, cases), cases,
+            CollectiveClock(next(model.parameters()).device))
+
+
 def _launches() -> int:
     return _backend.launch_counts()["gauss_jordan"]
 
@@ -372,7 +445,8 @@ def _fit(model, optimizer, train_set, val_set, step_fn, validate_fn,
          payload_fn, patience: int, max_epochs: int, checkpoint_dir: Path,
          metrics_dir: Path, select_by: str, validate_init: bool,
          on_epoch: Callable[[dict], None] | None,
-         prepare_fn: Callable | None = None) -> TrainState:
+         prepare_fn: Callable | None = None, world=None,
+         clock: CollectiveClock | None = None) -> TrainState:
     """The epoch loop both families share: ``prepare_fn(i, batch)`` makes
     train batch ``i``'s step inputs (default: the batch) outside the timed
     step, ``step_fn(inputs, step)`` takes one step and returns its loss,
@@ -387,22 +461,35 @@ def _fit(model, optimizer, train_set, val_set, step_fn, validate_fn,
     validation losses, the per-case validation iterations, the epoch's
     seconds and its B1 launches.  ``validate_init`` first validates the
     starting parameters and passes that record as epoch -1 (it is not
-    logged, and is the first of the returned records)."""
-    logger = MetricsLogger(metrics_dir)
+    logged, and is the first of the returned records).
+
+    With ``world`` (data parallel; ``train_set`` serves this rank's
+    shares) rank 0 alone validates, logs and writes the checkpoints, and
+    broadcasts the mean validation loss and iterations, which every
+    rank's record and stopping rule read (the per-batch losses and
+    per-case iterations stay rank 0's); ``clock`` times each step's
+    all-reduce (``allreduce_ms`` in the record)."""
+    lead = world is None or world.rank == 0
+    logger = MetricsLogger(metrics_dir) if lead else None
     stopper = EarlyStopping(patience=patience)
     best_val = float("inf")
     step, epochs = 0, []
 
-    if validate_init:
+    def validate():
         b1_before = _launches()
-        v_losses, v_iters, val_duration = validate_fn(val_set)
-        epochs.append({
-            "epoch": -1, "step": 0, "val_loss": float(np.mean(v_losses)),
-            "val_losses": v_losses, "val_iterations": v_iters,
-            "val_mean_iterations": float(np.mean(v_iters)),
-            "val_seconds_per_batch": val_duration,
-            "b1_launches": _launches() - b1_before,
-        })
+        v_losses, v_iters, duration = (validate_fn(val_set) if lead
+                                       else ([], [], 0.0))
+        means = ([float(np.mean(v_losses)), float(np.mean(v_iters))]
+                 if lead else [0.0, 0.0])
+        if world is not None:
+            means = broadcast_floats(world, means)
+        return {"val_loss": means[0], "val_losses": v_losses,
+                "val_iterations": v_iters, "val_mean_iterations": means[1],
+                "val_seconds_per_batch": duration,
+                "b1_launches": _launches() - b1_before}
+
+    if validate_init:
+        epochs.append({"epoch": -1, "step": 0, **validate()})
         if on_epoch is not None:
             on_epoch(epochs[-1])
 
@@ -410,6 +497,7 @@ def _fit(model, optimizer, train_set, val_set, step_fn, validate_fn,
         t_epoch = time.perf_counter()
         b1_before = _launches()
         step_losses, step_seconds, prepare_seconds = [], [], 0.0
+        allreduce_ms = []
         for i in range(len(train_set)):
             batch = train_set[i]
             t0 = time.perf_counter()
@@ -418,33 +506,36 @@ def _fit(model, optimizer, train_set, val_set, step_fn, validate_fn,
             t0 = time.perf_counter()
             step_losses.append(float(step_fn(inputs, step)))
             step_seconds.append(time.perf_counter() - t0)
+            if clock is not None:
+                allreduce_ms.extend(clock.take())
             step += 1
         train_loss = float(np.mean(step_losses))
+        b1_steps = _launches() - b1_before
 
-        v_losses, v_iters, val_duration = validate_fn(val_set)
-        val_loss = float(np.mean(v_losses))
-        val_iters = float(np.mean(v_iters))
-        logger.log_metric("train/loss/inverse", train_loss)
-        logger.log_metric("val/loss/inverse", val_loss)
-        logger.log_metric("val/metric/durations", val_duration)
-        logger.log_metric("val/metric/iterations", val_iters)
-        logger.next_step()
-
-        save_checkpoint(checkpoint_dir / "latest.msgpack", payload_fn(step))
+        val = validate()
+        val_loss, val_iters = val["val_loss"], val["val_mean_iterations"]
         criterion = val_iters if select_by == "iterations" else val_loss
-        if criterion < best_val:
-            best_val = criterion
-            save_checkpoint(checkpoint_dir / "best.msgpack",
+        improved = criterion < best_val
+        best_val = min(best_val, criterion)
+        if lead:
+            logger.log_metric("train/loss/inverse", train_loss)
+            logger.log_metric("val/loss/inverse", val_loss)
+            logger.log_metric("val/metric/durations",
+                              val["val_seconds_per_batch"])
+            logger.log_metric("val/metric/iterations", val_iters)
+            logger.next_step()
+            save_checkpoint(checkpoint_dir / "latest.msgpack",
                             payload_fn(step))
+            if improved:
+                save_checkpoint(checkpoint_dir / "best.msgpack",
+                                payload_fn(step))
         record = {
             "epoch": epoch, "step": step, "step_losses": step_losses,
             "step_seconds": step_seconds, "prepare_seconds": prepare_seconds,
-            "train_loss": train_loss,
-            "val_loss": val_loss, "val_losses": v_losses,
-            "val_iterations": v_iters, "val_mean_iterations": val_iters,
-            "val_seconds_per_batch": val_duration,
+            "allreduce_ms": allreduce_ms, "train_loss": train_loss,
+            **val,
             "seconds": time.perf_counter() - t_epoch,
-            "b1_launches": _launches() - b1_before,
+            "b1_launches": b1_steps + val["b1_launches"],
         }
         epochs.append(record)
         if on_epoch is not None:
@@ -453,7 +544,8 @@ def _fit(model, optimizer, train_set, val_set, step_fn, validate_fn,
         if stopper(criterion):
             break
 
-    logger.close()
+    if logger is not None:
+        logger.close()
     return TrainState(model, optimizer, step, epochs)
 
 
@@ -473,6 +565,7 @@ def train(
     select_by: str = "loss",
     init_from: Path | str | None = None,
     on_epoch: Callable[[dict], None] | None = None,
+    world=None,
 ) -> TrainState:
     """Train a conv model (already on the batches' device and dtype) on
     ``train_set``, validating on ``val_set`` every epoch (the reference's
@@ -489,6 +582,11 @@ def train(
     ``loss`` trains, and the epoch's mean train loss is logged as
     ``train/loss/inverse`` whatever its name.  Checkpoints hold the reference's ``save_checkpoint``
     payload (params, the optax Adam state, step, channels).
+
+    ``world`` (``multihost.train_world``) trains data-parallel: this
+    rank's share of every batch (``train_set.share``), the step the
+    global batch's (see the module's docstring); ``hutchinson_trace``'s
+    every rank draws the whole batch's probes and keeps its rows.
     """
     if loss not in CONV_LOSSES:
         raise ValueError(f"unknown loss {loss}")
@@ -509,22 +607,34 @@ def train(
     device = next(model.parameters()).device
     generator = (torch.Generator(device=device).manual_seed(0)
                  if loss == "hutchinson_trace" else None)
+    fit_set, cases, clock = _data_parallel(model, train_set, world)
 
     def step_fn(batch, step):
         if rate is not None:
             for group in optimizer.param_groups:
                 group["lr"] = rate(step)
-        return train_step(model, optimizer, batch, loss, generator)
+        if world is None:
+            return train_step(model, optimizer, batch, loss, generator)
+        probes = None
+        if generator is not None and batch is not None:
+            values = batch.systems.values
+            probes = torch.randn(
+                (train_set.batch_size, batch.solutions.shape[1]),
+                generator=generator, dtype=values.dtype,
+                device=values.device)[cases.start:cases.stop]
+        return train_step(model, optimizer, batch, loss, probes=probes,
+                          world=world, n_global=train_set.batch_size,
+                          clock=clock)
 
     return _fit(
-        model, optimizer, train_set, val_set, step_fn,
+        model, optimizer, fit_set, val_set, step_fn,
         lambda val: validate_conv(model, val),
         lambda step: checkpoint_payload(
             model, optimizer, step, scheduled=rate is not None,
             # Flax stores a list as a map keyed "0", "1", ...
             channels={str(i): int(c) for i, c in enumerate(model.channels)}),
         patience, max_epochs, checkpoint_dir, Path(metrics_dir), select_by,
-        validate_init=False, on_epoch=on_epoch)
+        validate_init=False, on_epoch=on_epoch, world=world, clock=clock)
 
 
 def train_neural_fsai(
@@ -544,6 +654,7 @@ def train_neural_fsai(
     init_from: Path | str | None = None,
     validate_init: bool = False,
     on_epoch: Callable[[dict], None] | None = None,
+    world=None,
 ) -> TrainState:
     """Train ``model`` (already on the batches' device and dtype) on
     ``train_set``, validating on ``val_set`` every epoch (the loop is
@@ -551,22 +662,35 @@ def train_neural_fsai(
 
     The parameters start from Flax's fresh initialization drawn from
     ``torch.Generator().manual_seed(seed)`` (``init_params``), or from the
-    params of the checkpoint ``init_from`` (fresh optimizer).
+    params of the checkpoint ``init_from`` (fresh optimizer).  ``world``
+    trains data-parallel, as ``train``'s does: each rank's plans are its
+    share's, B1 runs once a step on the share's columns, and an "auto"
+    plan kind is settled first on the whole batch a single device would
+    see first (``FSAIPlanProvider.settle``), so every rank runs the same
+    forward path.
     """
     nf.init_params(model, torch.Generator().manual_seed(seed))
     if init_from is not None:
         load_params(model, load_checkpoint(Path(init_from)))
     optimizer = adam(model, learning_rate)
     power = int(getattr(plan_provider, "power", 0))
+    fit_set, _, clock = _data_parallel(model, train_set, world)
+    if world is not None:
+        plan_provider.settle(val_set[0] if validate_init and len(val_set)
+                             else train_set[0])
 
     def step_fn(inputs, step):
         batch, plans = inputs
-        return fsai_train_step(
-            model, optimizer, plans, batch.features[:, :, 0],
-            batch.systems.to_dense(), batch.right_hand_sides, loss, pcg_steps)
+        # an empty share (no batch, no plans) joins the all-reduce
+        operands = ((None, None, None) if batch is None else
+                    (batch.features[:, :, 0], batch.systems.to_dense(),
+                     batch.right_hand_sides))
+        return fsai_train_step(model, optimizer, plans, *operands, loss,
+                               pcg_steps, world=world,
+                               n_global=train_set.batch_size, clock=clock)
 
     return _fit(
-        model, optimizer, train_set, val_set, step_fn,
+        model, optimizer, fit_set, val_set, step_fn,
         lambda val: validate_fsai(model, val, plan_provider),
         lambda step: checkpoint_payload(
             model, optimizer, step, width=model.width, hidden=model.hidden,
@@ -574,4 +698,6 @@ def train_neural_fsai(
         patience, max_epochs, Path(checkpoint_dir), Path(metrics_dir),
         select_by, validate_init=validate_init, on_epoch=on_epoch,
         # a batch's first plan build stays out of the timed step
-        prepare_fn=lambda i, batch: (batch, plan_provider(i, batch)))
+        prepare_fn=lambda i, batch: (
+            batch, None if batch is None else plan_provider(i, batch)),
+        world=world, clock=clock)

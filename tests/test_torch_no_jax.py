@@ -4,7 +4,8 @@ modules cannot be imported, the conv train stage's and the structured
 trainer's and scaling protocol's names, the batched probe, the mesh study
 and the one-off deployed setup included, the distributed solver, the
 generate stage, the pipeline runner, the residual-parity report and the
-scaling bench too, and the host runtime it
+scaling bench too, the data-parallel trainer and the multichip dry run
+as well, and the host runtime it
 builds and loads there is its own (nothing under ``native/`` or
 ``deeppreconditioning_tpu/`` among the loaded shared objects)."""
 
@@ -37,7 +38,8 @@ for name in ("ops.ic0", "ops.trisolve", "ops.amg", "ops.banded_factor",
              "compare_meshes", "parallel", "parallel.partition",
              "parallel.multihost", "parallel.pcg", "parallel.block_jacobi",
              "parallel.fsai", "sparse.csr", "generate_data", "repro",
-             "residual_parity", "scaling_bench"):
+             "residual_parity", "scaling_bench", "parallel.data_parallel",
+             "dryrun"):
     assert pkg.__name__ + "." + name in sys.modules, name
 from deeppreconditioning_tpu_torch.data.datasets import (
     ConvPlans, RandomSPDDataSet, StAnDataSet, download_from_kaggle)
@@ -76,7 +78,13 @@ from deeppreconditioning_tpu_torch.parallel.fsai import (
     make_fsai_sharded_apply)
 from deeppreconditioning_tpu_torch.parallel.multihost import (
     SolverWorld, backend_for, initialize_if_needed, initialize_single,
-    solver_world)
+    rank_device, solver_world, train_world)
+from deeppreconditioning_tpu_torch.parallel.data_parallel import (
+    CollectiveClock, RankShares, all_reduce_gradients, broadcast_floats,
+    broadcast_parameters, case_span, loss_weight)
+from deeppreconditioning_tpu_torch.dryrun import (
+    conv_step, fsai_step, halo_pcg, poly_fsai)
+from deeppreconditioning_tpu_torch.train.__main__ import start_world
 from deeppreconditioning_tpu_torch.data.fvm import (
     case_digests, generate_dataset, native_assembly, numpy_assembly)
 from deeppreconditioning_tpu_torch import native
@@ -102,4 +110,4 @@ def test_port_imports_without_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 66
+    assert int(out.stdout.strip().splitlines()[-1]) >= 68
