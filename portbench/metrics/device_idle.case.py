@@ -1,0 +1,9 @@
+"""device_idle.case: as device_idle.solve, for the per-case cell (it moves
+case_solves_per_s): the share of the traced slice with no kernel, copy
+or set on the card, in %."""
+
+from portbench.harness.readers import idle_share
+
+
+def read(view):
+    return idle_share(view)

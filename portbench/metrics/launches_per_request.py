@@ -1,0 +1,8 @@
+"""launches_per_request: CUDA API calls that launch a
+kernel or a graph inside the requests of the traced slice, a request."""
+
+from portbench.harness.readers import launches_per_request
+
+
+def read(view):
+    return launches_per_request(view)

@@ -1,0 +1,9 @@
+"""pcg_ms.case: as pcg_ms, for the per-case cell (it moves
+case_solves_per_s): CUDA events around the runner's call of the port's solve
+(span ``pcg``), mean a request of the traced slice, in ms."""
+
+from portbench.harness.readers import mean_span
+
+
+def read(view):
+    return mean_span(view, "pcg")

@@ -1,0 +1,8 @@
+"""pcg_ms: CUDA events around the runner's call of the port's solve
+(span ``pcg``), mean a request of the traced slice, in ms."""
+
+from portbench.harness.readers import mean_span
+
+
+def read(view):
+    return mean_span(view, "pcg")
