@@ -66,6 +66,7 @@ from deeppreconditioning_tpu_torch.ops.fsai import (
     tril_power_pattern,
     tril_power_pattern_capped,
 )
+from deeppreconditioning_tpu_torch.utils.tracing import span
 
 LAYERS = ("alpha", "beta", "dense0", "dense1")  # Flax's (sorted) names
 
@@ -226,22 +227,28 @@ def neural_fsai_dense_preconditioner(
     Gram form from strips on a range plan, through the dense factor on a
     generic plan.  One case, or a group plan with stacked operands,
     scales and one ``n0`` per case (the forward is then one B1 launch).
-    ``precision`` is the polynomial wrap's (``ops/fsai._matmul``)."""
-    operand = operand.to(dtype)
-    out = model(plan, operand)
-    d_isqrt = 1.0 / torch.sqrt(scales.to(dtype))
-    if isinstance(plan, FSAIPlan):
-        return poly_preconditioner_dense(
-            fsai_dense_factor(plan, out.c_vals),
-            fsai_dense_from_l0(plan, operand), out.q_coeffs,
-            d_isqrt=d_isqrt, n0=n0, precision=precision,
-        )
-    strips = range_strips(plan, out.c_vals)
-    s_eff = range_m_from_strips(plan, strips, d_isqrt=d_isqrt, n0=n0)
-    d_sqrt = torch.sqrt(scales.to(dtype))
-    a_raw = d_sqrt[..., :, None] * operand * d_sqrt[..., None, :]
-    return poly_preconditioner_from_gram(s_eff, a_raw, out.q_coeffs,
-                                         precision=precision)
+    ``precision`` is the polynomial wrap's (``ops/fsai._matmul``).  Under
+    a ``torch.profiler`` it records the span ``fsai.setup`` with the
+    children ``fsai.forward`` and ``fsai.wrap`` (``utils/tracing.py``)."""
+    dev = operand.device
+    with span("fsai.setup", dev):
+        operand = operand.to(dtype)
+        with span("fsai.forward", dev):
+            out = model(plan, operand)
+        with span("fsai.wrap", dev):
+            d_isqrt = 1.0 / torch.sqrt(scales.to(dtype))
+            if isinstance(plan, FSAIPlan):
+                return poly_preconditioner_dense(
+                    fsai_dense_factor(plan, out.c_vals),
+                    fsai_dense_from_l0(plan, operand), out.q_coeffs,
+                    d_isqrt=d_isqrt, n0=n0, precision=precision,
+                )
+            strips = range_strips(plan, out.c_vals)
+            s_eff = range_m_from_strips(plan, strips, d_isqrt=d_isqrt, n0=n0)
+            d_sqrt = torch.sqrt(scales.to(dtype))
+            a_raw = d_sqrt[..., :, None] * operand * d_sqrt[..., None, :]
+            return poly_preconditioner_from_gram(s_eff, a_raw, out.q_coeffs,
+                                                 precision=precision)
 
 
 class CasePlan(NamedTuple):

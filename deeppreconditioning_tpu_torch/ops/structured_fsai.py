@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from deeppreconditioning_tpu_torch.ops.dia_spmv import dia_matvec
 from deeppreconditioning_tpu_torch.ops.gauss_jordan import masked_gauss_jordan
 from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
+from deeppreconditioning_tpu_torch.utils.tracing import span
 
 CHUNK = 1 << 18  # columns per B1 launch: bounds the (T, w, w) systems
 # poly_safeguard: power steps, the spectral margin and the test grid
@@ -461,26 +462,37 @@ def structured_setup(a_raw: DIAMatrix, plan: StructuredFSAIPlan, model=None,
     a degree-0 model skips the safeguard (q has one coefficient), and so
     does ``safeguard=False`` (the trainer's: the clamp would freeze q).
     Batched values (S, n_diag, n_pad) give bands (S, w, n_pad) and one q;
-    they take no safeguard, which clamps per operator."""
-    a_sorted = dia_sorted_by_offset(a_raw)
-    a_scaled, d_sqrt = jacobi_scale_dia(a_sorted)
-    # the parameters enter after the local solves: without a gradient
-    # for the operator they run under no_grad (B1 has no backward)
-    with torch.set_grad_enabled(torch.is_grad_enabled()
-                                and a_scaled.vals.requires_grad):
-        c_bands = structured_fsai_columns(a_scaled, plan)
-    if model is None:
-        q = torch.ones(1, dtype=c_bands.dtype, device=c_bands.device)
-    else:
-        valid = slot_valid(plan, a_sorted.n_pad, c_bands.device,
-                           c_bands.dtype)
-        a_col = structured_a_col(a_scaled, plan)
-        c_bands, q = structured_refine(model, c_bands, a_col, valid)
-        if safeguard and q.shape[0] > 1:
-            if c_bands.dim() != 2:
-                raise ValueError("the safeguard clamps one operator's q: "
-                                 "batched setups take safeguard=False")
-            q, _, _ = poly_safeguard(c_bands, q, a_scaled, plan.offsets)
-    d_isqrt = torch.where(d_sqrt == 0, torch.zeros_like(d_sqrt),
-                          1.0 / d_sqrt)
-    return fold_scaling(c_bands, d_isqrt, plan.offsets), q
+    they take no safeguard, which clamps per operator.  Under a
+    ``torch.profiler`` it records the span ``structured.setup`` with the
+    children ``structured.columns`` (sort, scale, local solves),
+    ``structured.refine`` and ``structured.safeguard``
+    (``utils/tracing.py``)."""
+    dev = a_raw.vals.device
+    with span("structured.setup", dev):
+        with span("structured.columns", dev):
+            a_sorted = dia_sorted_by_offset(a_raw)
+            a_scaled, d_sqrt = jacobi_scale_dia(a_sorted)
+            # the parameters enter after the local solves: without a
+            # gradient for the operator they run under no_grad (B1 has no
+            # backward)
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and a_scaled.vals.requires_grad):
+                c_bands = structured_fsai_columns(a_scaled, plan)
+        if model is None:
+            q = torch.ones(1, dtype=c_bands.dtype, device=c_bands.device)
+        else:
+            with span("structured.refine", dev):
+                valid = slot_valid(plan, a_sorted.n_pad, c_bands.device,
+                                   c_bands.dtype)
+                a_col = structured_a_col(a_scaled, plan)
+                c_bands, q = structured_refine(model, c_bands, a_col, valid)
+            if safeguard and q.shape[0] > 1:
+                if c_bands.dim() != 2:
+                    raise ValueError("the safeguard clamps one operator's q: "
+                                     "batched setups take safeguard=False")
+                with span("structured.safeguard", dev):
+                    q, _, _ = poly_safeguard(c_bands, q, a_scaled,
+                                             plan.offsets)
+        d_isqrt = torch.where(d_sqrt == 0, torch.zeros_like(d_sqrt),
+                              1.0 / d_sqrt)
+        return fold_scaling(c_bands, d_isqrt, plan.offsets), q

@@ -27,13 +27,12 @@ from its cases (``PlannedDataSet.share``).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from deeppreconditioning_tpu_torch.parallel.multihost import SolverWorld
+from deeppreconditioning_tpu_torch.utils.tracing import Interval
 
 SUM_LOSSES = ("frobenius_loss",)  # the rest are means over the cases
 
@@ -90,39 +89,25 @@ def broadcast_parameters(model: torch.nn.Module, world: SolverWorld) -> None:
 
 
 class CollectiveClock:
-    """Times each all-reduce: CUDA events on a CUDA device (read after
-    the step has synchronized), the host clock on the CPU (gloo's
-    collectives return when they are done)."""
+    """Times each all-reduce with a ``utils/tracing.Interval``: CUDA
+    events on a CUDA device (read after the step has synchronized), the
+    host clock on the CPU (gloo's collectives return when they are
+    done)."""
 
     def __init__(self, device) -> None:
-        self.cuda = torch.device(device).type == "cuda"
+        self.device = torch.device(device)
         self._spans: list = []
 
-    def start(self):
-        if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            return event
-        return time.perf_counter()
+    def start(self) -> Interval:
+        return Interval(self.device)
 
-    def stop(self, begun) -> None:
-        if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            self._spans.append((begun, event))
-        else:
-            self._spans.append((time.perf_counter() - begun) * 1e3)
+    def stop(self, begun: Interval) -> None:
+        self._spans.append(begun.stop())
 
     def take(self) -> list[float]:
         """The milliseconds of the all-reduces since the last call."""
         spans, self._spans = self._spans, []
-        if not self.cuda:
-            return spans
-        out = []
-        for begun, ended in spans:
-            ended.synchronize()
-            out.append(begun.elapsed_time(ended))
-        return out
+        return [span.ms() for span in spans]
 
 
 def all_reduce_gradients(model: torch.nn.Module, world: SolverWorld,

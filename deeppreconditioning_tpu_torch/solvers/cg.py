@@ -11,9 +11,13 @@ Numeric contract of ``deeppreconditioning_tpu/solvers/cg.py``:
 The loop runs ``check_every`` masked iterations per chunk, all on the
 device (``torch.where`` freezes the state once done), and reads ``done``
 on the host once per chunk.  Iteration counts are exact per iteration,
-not rounded to chunks.  ``pcg_fixed_trips`` runs the same masked
-iteration a fixed number of times with no host read at all, so its
-counts equal the chunked solver's whenever ``trips`` covers the solve.
+not rounded to chunks.  Under a ``torch.profiler`` the two chunked
+solvers record the spans ``pcg.solve``, ``pcg.chunk`` and ``pcg.read``
+and count the iterations they execute, masked ones included, in
+``pcg.system_iterations`` (``utils/tracing.py``).  ``pcg_fixed_trips``
+runs the same masked iteration a fixed number of times with no host read
+at all, so its counts equal the chunked solver's whenever ``trips``
+covers the solve.
 
 ``batched_preconditioned_conjugate_gradient`` and
 ``batched_pcg_fixed_trips`` solve B independent systems at once, x and b
@@ -36,6 +40,8 @@ import time
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from deeppreconditioning_tpu_torch.utils.tracing import count, span
 
 
 class CGResult(NamedTuple):
@@ -109,12 +115,21 @@ def preconditioned_conjugate_gradient(
     check_every: int = 64,
 ) -> CGResult:
     """Solve A x = b with PCG (see the module docstring)."""
-    s, bb = _pcg_start(matvec, a_data, b, apply_m, m_data, rtol)
-    while not bool(s.done | (s.k >= max_iter)):
-        for _ in range(check_every):
-            s = _masked_iteration(matvec, a_data, apply_m, m_data, s, bb,
-                                  rtol, max_iter)
-    return CGResult(x=s.x, iterations=s.k, residual=torch.dot(s.r, s.r) / bb)
+    dev = b.device
+    with span("pcg.solve", dev):
+        s, bb = _pcg_start(matvec, a_data, b, apply_m, m_data, rtol)
+        while True:
+            with span("pcg.read", dev):
+                running = not bool(s.done | (s.k >= max_iter))
+            if not running:
+                break
+            with span("pcg.chunk", dev):
+                for _ in range(check_every):
+                    s = _masked_iteration(matvec, a_data, apply_m, m_data, s,
+                                          bb, rtol, max_iter)
+            count("pcg.system_iterations", check_every)
+        return CGResult(x=s.x, iterations=s.k,
+                        residual=torch.dot(s.r, s.r) / bb)
 
 
 def pcg_fixed_trips(
@@ -285,12 +300,20 @@ def batched_preconditioned_conjugate_gradient(
 ) -> CGResult:
     """Solve B systems A_i x_i = b_i (b: (B, n)) until every case is done;
     x (B, n), iterations (B,) int32, residual (B,)."""
-    s, bb = _batched_start(matvec, a_data, b, apply_m, m_data, rtol)
-    while bool((~s.done & (s.k < max_iter)).any()):
-        for _ in range(check_every):
-            s = _batched_iteration(matvec, a_data, apply_m, m_data, s, bb,
-                                   rtol, max_iter)
-    return CGResult(x=s.x, iterations=s.k, residual=_dots(s.r, s.r) / bb)
+    dev = b.device
+    with span("pcg.solve", dev):
+        s, bb = _batched_start(matvec, a_data, b, apply_m, m_data, rtol)
+        while True:
+            with span("pcg.read", dev):
+                running = bool((~s.done & (s.k < max_iter)).any())
+            if not running:
+                break
+            with span("pcg.chunk", dev):
+                for _ in range(check_every):
+                    s = _batched_iteration(matvec, a_data, apply_m, m_data,
+                                           s, bb, rtol, max_iter)
+            count("pcg.system_iterations", b.shape[0] * check_every)
+        return CGResult(x=s.x, iterations=s.k, residual=_dots(s.r, s.r) / bb)
 
 
 def batched_pcg_fixed_trips(

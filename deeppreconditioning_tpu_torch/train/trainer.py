@@ -87,6 +87,7 @@ from deeppreconditioning_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from deeppreconditioning_tpu_torch.utils.logging import MetricsLogger
+from deeppreconditioning_tpu_torch.utils.tracing import span
 
 FSAI_LOSSES = ("pcg_loss", "inverse_loss", "kaporin_loss")
 CONV_LOSSES = ("inverse_loss", "frobenius_loss", "hutchinson_trace",
@@ -206,22 +207,33 @@ def _optimize(model, optimizer: torch.optim.Optimizer, objective,
     objective is this rank's loss on its ``n_local`` of ``n_global``
     cases (None: no case), weighted by ``loss_weight`` before its
     backward; the gradients and the loss are then all-reduced, and the
-    returned loss is the global batch's."""
-    optimizer.zero_grad(set_to_none=True)
+    returned loss is the global batch's.  Under a ``torch.profiler`` the
+    parts record the spans ``train.forward`` (the objective),
+    ``train.backward`` and ``train.adam`` (``zero_grad`` and ``step``;
+    ``utils/tracing.py``)."""
+    dev = next(model.parameters()).device
+    with span("train.adam", dev):
+        optimizer.zero_grad(set_to_none=True)
     if world is None:
-        value = objective()
-        value.backward()
-        optimizer.step()
+        with span("train.forward", dev):
+            value = objective()
+        with span("train.backward", dev):
+            value.backward()
+        with span("train.adam", dev):
+            optimizer.step()
         return value.detach()
     local = None
     if objective is not None:
-        local = objective()
-        weight = loss_weight(loss, n_local, n_global)
-        if weight != 1.0:
-            local = local * weight
-        local.backward()
+        with span("train.forward", dev):
+            local = objective()
+            weight = loss_weight(loss, n_local, n_global)
+            if weight != 1.0:
+                local = local * weight
+        with span("train.backward", dev):
+            local.backward()
     value = all_reduce_gradients(model, world, local, clock)
-    optimizer.step()
+    with span("train.adam", dev):
+        optimizer.step()
     return value
 
 
