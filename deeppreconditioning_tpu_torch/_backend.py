@@ -14,7 +14,10 @@ A wrapper with more than one instance passes the launch's dtype too, and
 Every plain version calls ``count_plain(name, tensor)``, which counts the
 calls made on a CUDA tensor (``plain_cuda_counts``): a main path on the
 card must read 0 there, since on the card only a comparison with the
-kernel runs the plain version.
+kernel runs the plain version.  A CUDA graph's capture launches nothing,
+so the counts its wrappers made then are taken back out
+(``launch_state`` / ``launches_since``) and added again on every replay
+(``add_launches``): the counts stay the launches that ran.
 
 The host runtime (``csrc/host_runtime.cpp``: IC(0), ICT, trisolve levels,
 conv plans, FVM assembly) is C++ for the host, built with ``g++`` into
@@ -112,6 +115,39 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(_launches)
+
+
+def _replayed_counts() -> tuple:
+    return _launches, _dtype_launches, _plain_on_cuda
+
+
+def launch_state() -> tuple:
+    """Copies of the counts a CUDA graph replays (launches, launches by
+    dtype, plain calls on CUDA), for ``launches_since``."""
+    return tuple(dict(counts) for counts in _replayed_counts())
+
+
+def launches_since(state: tuple) -> tuple:
+    """What was counted since ``state`` (``launch_state()``), taken back
+    out of the counts: a CUDA graph's capture counts launches that run
+    only when the graph is replayed, and each replay adds them
+    (``add_launches``)."""
+    delta = []
+    for counts, before in zip(_replayed_counts(), state):
+        delta.append({key: n - before.get(key, 0)
+                      for key, n in counts.items()
+                      if n != before.get(key, 0)})
+        counts.clear()
+        counts.update(before)
+    return tuple(delta)
+
+
+def add_launches(delta: tuple) -> None:
+    """Count a replay of a captured graph: ``delta`` is its capture's
+    ``launches_since``."""
+    for counts, added in zip(_replayed_counts(), delta):
+        for key, n in added.items():
+            counts[key] = counts.get(key, 0) + n
 
 
 def dtype_launch_counts() -> dict[tuple[str, str], int]:

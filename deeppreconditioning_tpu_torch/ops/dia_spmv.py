@@ -19,6 +19,8 @@ the ``DIAMatrix``, keyed on the values' address, shape, dtype and device,
 so replaced values build a new plan.  A call then checks only x, allocates
 y, reads the raw current stream (``torch._C._cuda_getCurrentRawStream``,
 which follows a CUDA graph's capture stream) and makes one ctypes call.
+So ``dia_matvec`` is declared ``capture_safe`` (``solvers/cg.py``): the
+single-system PCG replays its launches from a CUDA graph.
 
 Where x needs a gradient, the product goes through ``DIAMatvec``, an
 autograd function whose forward is that dispatch and whose backward is
@@ -39,6 +41,7 @@ from dataclasses import dataclass
 import torch
 
 from deeppreconditioning_tpu_torch import _backend
+from deeppreconditioning_tpu_torch.solvers.cg import capture_safe
 from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
 
 MAX_DIAGS = 32  # the window table travels by value in the kernel's parameters
@@ -316,6 +319,7 @@ class DIAMatvec(torch.autograd.Function):
         return _dispatch(a_t, grad.contiguous()), None, None
 
 
+@capture_safe
 def dia_matvec(a: DIAMatrix, x: torch.Tensor,
                a_t: DIAMatrix | None = None) -> torch.Tensor:
     """y = A x.  CPU: plain version; otherwise the CUDA kernel, or raise.

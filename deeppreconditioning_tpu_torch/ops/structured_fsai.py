@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from deeppreconditioning_tpu_torch.ops.dia_spmv import dia_matvec
 from deeppreconditioning_tpu_torch.ops.gauss_jordan import masked_gauss_jordan
+from deeppreconditioning_tpu_torch.solvers.cg import capture_safe
 from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
 from deeppreconditioning_tpu_torch.utils.tracing import span
 
@@ -352,8 +353,11 @@ def bands_to_dia(bands: torch.Tensor, offsets: Tuple[int, ...],
 def make_structured_poly_apply_dia(degree: int):
     """z = C q(B) q(B)^T C^T r with B = C^T A C, every factor half and
     operator matvec one DIA matvec (kernel B2 on the card);
-    m_data = (c_up, c_low, q_coeffs, a_raw)."""
+    m_data = (c_up, c_low, q_coeffs, a_raw).  The apply is declared
+    ``capture_safe``: the single-system solver replays it from a CUDA
+    graph."""
 
+    @capture_safe
     def apply_fn(m_data, r: torch.Tensor) -> torch.Tensor:
         c_up, c_low, q_coeffs, a_raw = m_data
 

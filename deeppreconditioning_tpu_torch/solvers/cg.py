@@ -19,6 +19,39 @@ runs the same masked iteration a fixed number of times with no host read
 at all, so its counts equal the chunked solver's whenever ``trips``
 covers the solve.
 
+On a CUDA device ``preconditioned_conjugate_gradient`` replays the chunk
+from a CUDA graph where it can, and otherwise runs the same loop
+eagerly.  The graph engages when ``b`` is on a CUDA device, grad mode is
+off or no operand tensor needs a gradient, and both ``matvec`` and
+``apply_m`` are declared capture-safe (``capture_safe``: ``ell_matvec``,
+``dense_matvec``, ``identity_apply``, ``ops.dia_spmv.dia_matvec`` and
+the apply ``ops.structured_fsai.make_structured_poly_apply_dia``
+returns): they launch on the current stream, read no device value on the
+host, and a replay of what they launched recomputes from the operands'
+buffers.  Every other caller (the IC and ILU level waves, AMG, GMG, a
+caller's own closure, every CPU call) runs the eager loop.  The graphs
+are keyed on the two callables, each operand tensor's shape, strides,
+dtype and device, which tensors and matrices are one object, a
+``DIAMatrix``'s offsets, and ``rtol``, ``max_iter`` and ``check_every``
+(not ``ELLMatrix.n`` or ``DIAMatrix.n``, which the products do not
+read), in a cache of ``GRAPH_KEYS`` keys, the least recently used
+dropped first.  A key owns static copies of the operand tensors (and of
+their matrices, whose B2 plans an eager warm-up builds before the
+capture), the static state x, r, z, p, k, done, b.b and ``done | k >=
+max_iter``, and two graphs in one memory pool: the start and one chunk
+of ``check_every`` masked iterations.  A solve copies its operand
+tensors into the static ones, replays the start, then per chunk reads
+``done | k >= max_iter`` on the host and replays the chunk, and returns
+fresh copies of x, the count and the residual: the same kernels in the
+same order as the eager loop, so the same bits.  The first call of a key
+runs the start and one iteration eagerly on a side stream (its warm-up),
+then captures both graphs there.  The ``_backend`` launch counts a
+capture makes are taken back out and added on every replay, so they
+count the launches that ran.  The spans stay outside the graphs, and the
+graphed solve counts ``pcg.graph_chunks`` (its chunks) and
+``pcg.graph_captures`` (its keys captured) beside
+``pcg.system_iterations``.
+
 ``batched_preconditioned_conjugate_gradient`` and
 ``batched_pcg_fixed_trips`` solve B independent systems at once, x and b
 (B, n), with the same masked semantics per case: every scalar is a
@@ -36,12 +69,19 @@ them until ``done`` reads true at a chunk's end);
 
 from __future__ import annotations
 
+import functools
 import time
+from collections import OrderedDict
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from deeppreconditioning_tpu_torch import _backend
+from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
+from deeppreconditioning_tpu_torch.sparse.ell import ELLMatrix
 from deeppreconditioning_tpu_torch.utils.tracing import count, span
+
+GRAPH_KEYS = 8  # operand signatures whose graphs are kept
 
 
 class CGResult(NamedTuple):
@@ -50,16 +90,28 @@ class CGResult(NamedTuple):
     residual: torch.Tensor  # final (r.r)/(b.b)
 
 
+def capture_safe(fn: Callable) -> Callable:
+    """Declare ``fn`` (a ``matvec`` or ``apply_m``) safe to capture in the
+    single-system solver's CUDA graph: it launches on the current stream,
+    reads no device value on the host, and what it launched, replayed,
+    recomputes from its operands' buffers.  Returns ``fn``."""
+    fn.capture_safe = True
+    return fn
+
+
+@capture_safe
 def identity_apply(m_data: Any, r: torch.Tensor) -> torch.Tensor:
     """Vanilla 'preconditioner': z = r."""
     del m_data
     return r
 
 
+@capture_safe
 def dense_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return a @ x
 
 
+@capture_safe
 def ell_matvec(a, x: torch.Tensor) -> torch.Tensor:
     """Matvec for sparse/ell.py ELLMatrix operands."""
     return a.matvec(x)
@@ -117,6 +169,13 @@ def preconditioned_conjugate_gradient(
     """Solve A x = b with PCG (see the module docstring)."""
     dev = b.device
     with span("pcg.solve", dev):
+        key, leaves = _graph_key(matvec, a_data, b, apply_m, m_data, rtol,
+                                 max_iter, check_every)
+        if key is not None and _eager_because(matvec, apply_m, b,
+                                              leaves) is None:
+            return _chunk_graph(key, leaves, matvec, a_data, b, apply_m,
+                                m_data, rtol, max_iter,
+                                check_every).solve(leaves)
         s, bb = _pcg_start(matvec, a_data, b, apply_m, m_data, rtol)
         while True:
             with span("pcg.read", dev):
@@ -130,6 +189,197 @@ def preconditioned_conjugate_gradient(
             count("pcg.system_iterations", check_every)
         return CGResult(x=s.x, iterations=s.k,
                         residual=torch.dot(s.r, s.r) / bb)
+
+
+def _eager_because(matvec, apply_m, b: torch.Tensor, leaves) -> str | None:
+    """Why a solve takes the eager loop ("undeclared": a callable not
+    declared ``capture_safe``; "grad": an operand tensor needs a gradient
+    under grad mode; "device": ``b`` is not on a CUDA device), or None
+    where its chunk is replayed from a CUDA graph."""
+    if not (getattr(matvec, "capture_safe", False)
+            and getattr(apply_m, "capture_safe", False)):
+        return "undeclared"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return "grad"
+    if b.device.type != "cuda":
+        return "device"
+    return None
+
+
+def _signature(tree, leaves: list, memo: dict):
+    """The part of a graph's key that the operand ``tree`` (a tensor, a
+    tuple, an ``ELLMatrix``, a ``DIAMatrix`` or None) gives: each
+    tensor's shape, strides, dtype and device, a DIA matrix's offsets, and
+    which tensors and matrices are one object (``memo``: id -> index).
+    Appends each tensor, the first time it is met, to ``leaves``.  Raises
+    TypeError on anything else."""
+    if isinstance(tree, (torch.Tensor, ELLMatrix, DIAMatrix)):
+        if id(tree) in memo:
+            return ("same", memo[id(tree)])
+        memo[id(tree)] = len(memo)
+        if isinstance(tree, torch.Tensor):
+            leaves.append(tree)
+            return ("tensor", tree.shape, tree.stride(), tree.dtype,
+                    tree.device)
+        if isinstance(tree, ELLMatrix):
+            return ("ell", _signature(tree.cols, leaves, memo),
+                    _signature(tree.vals, leaves, memo))
+        return ("dia", tuple(tree.offsets),
+                _signature(tree.vals, leaves, memo))
+    if isinstance(tree, tuple):
+        return ("tuple", *(_signature(t, leaves, memo) for t in tree))
+    if tree is None:
+        return None
+    raise TypeError(f"no graph signature for {type(tree).__name__}")
+
+
+def _graph_key(matvec, a_data, b, apply_m, m_data, rtol, max_iter,
+               check_every):
+    """(key, operand tensors in signature order) of a solve, or (None,
+    None) where an operand holds a type the graph does not take."""
+    leaves = []
+    try:
+        operands = _signature((a_data, b, m_data), leaves, {})
+    except TypeError:
+        return None, None
+    return (matvec, apply_m, operands, rtol, max_iter, check_every), leaves
+
+
+def _static_copy(tree, memo: dict, leaves: list):
+    """``tree`` rebuilt over new, empty tensors of each tensor's shape,
+    strides, dtype and device (appended to ``leaves`` in ``_signature``'s
+    order), with the same sharing; a matrix is rebuilt with its offsets
+    and ``n``, without a launch plan."""
+    if isinstance(tree, (torch.Tensor, ELLMatrix, DIAMatrix)):
+        if id(tree) in memo:
+            return memo[id(tree)]
+        if isinstance(tree, torch.Tensor):
+            out = torch.empty_strided(tree.shape, tree.stride(),
+                                      dtype=tree.dtype, device=tree.device)
+            leaves.append(out)
+        elif isinstance(tree, ELLMatrix):
+            out = ELLMatrix(cols=_static_copy(tree.cols, memo, leaves),
+                            vals=_static_copy(tree.vals, memo, leaves),
+                            n=tree.n)
+        else:
+            out = DIAMatrix(vals=_static_copy(tree.vals, memo, leaves),
+                            offsets=tree.offsets, n=tree.n)
+        memo[id(tree)] = out
+        return out
+    if isinstance(tree, tuple):
+        return tuple(_static_copy(t, memo, leaves) for t in tree)
+    return tree
+
+
+class _ChunkGraph:
+    """One operand signature's graphed solve: static operands and state,
+    the start and chunk graphs, and the ``_backend`` counts each replay
+    adds (see the module docstring)."""
+
+    def __init__(self, leaves, matvec, a_data, b, apply_m, m_data, rtol,
+                 max_iter, check_every) -> None:
+        self.matvec, self.apply_m = matvec, apply_m
+        self.rtol, self.max_iter = rtol, max_iter
+        self.check_every, self.device = check_every, b.device
+        self.leaves, memo = [], {}
+        self.a = _static_copy(a_data, memo, self.leaves)
+        self.b = _static_copy(b, memo, self.leaves)
+        self.m = _static_copy(m_data, memo, self.leaves)
+        scalar = functools.partial(torch.empty, (), device=b.device)
+        self.state = _PCGState(
+            *(torch.empty_like(b) for _ in range(4)),
+            scalar(dtype=torch.int32), scalar(dtype=torch.bool))
+        self.bb = scalar(dtype=b.dtype)
+        self.stop = scalar(dtype=torch.bool)
+        self._load(leaves)
+        (self.start_graph, self.start_counts, self.chunk_graph,
+         self.chunk_counts) = self._warm_and_capture()
+        count("pcg.graph_captures")
+
+    def _warm_and_capture(self):
+        """Run the start and one masked iteration eagerly on a side stream
+        (B2 plans of the static matrices, library handles, lazily loaded
+        kernels), then capture the start and the chunk there, the chunk in
+        the start's pool: (start graph, its counts, chunk graph, its
+        counts)."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._start()
+            _masked_iteration(self.matvec, self.a, self.apply_m, self.m,
+                              self.state, self.bb, self.rtol, self.max_iter)
+        side.synchronize()
+        start, start_counts = self._capture(self._start, side, None)
+        chunk, chunk_counts = self._capture(self._chunk, side, start.pool())
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return start, start_counts, chunk, chunk_counts
+
+    @staticmethod
+    def _capture(fn, stream, pool):
+        before = _backend.launch_state()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            fn()
+        return graph, _backend.launches_since(before)
+
+    def _store(self, s: _PCGState, bb=None) -> None:
+        for static, value in zip(self.state, s):
+            static.copy_(value)
+        if bb is not None:
+            self.bb.copy_(bb)
+        self.stop.copy_(s.done | (s.k >= self.max_iter))
+
+    def _start(self) -> None:
+        s, bb = _pcg_start(self.matvec, self.a, self.b, self.apply_m,
+                           self.m, self.rtol)
+        self._store(s, bb)
+
+    def _chunk(self) -> None:
+        s = self.state
+        for _ in range(self.check_every):
+            s = _masked_iteration(self.matvec, self.a, self.apply_m, self.m,
+                                  s, self.bb, self.rtol, self.max_iter)
+        self._store(s)
+
+    def _load(self, leaves) -> None:
+        for static, value in zip(self.leaves, leaves):
+            static.copy_(value)
+
+    def solve(self, leaves) -> CGResult:
+        """The chunked solve of operands ``leaves`` (``_graph_key``'s)."""
+        dev = self.device
+        self._load(leaves)
+        self.start_graph.replay()
+        _backend.add_launches(self.start_counts)
+        while True:
+            with span("pcg.read", dev):
+                running = not bool(self.stop)
+            if not running:
+                break
+            with span("pcg.chunk", dev):
+                self.chunk_graph.replay()
+                _backend.add_launches(self.chunk_counts)
+            count("pcg.graph_chunks")
+            count("pcg.system_iterations", self.check_every)
+        s = self.state
+        return CGResult(x=s.x.clone(), iterations=s.k.clone(),
+                        residual=torch.dot(s.r, s.r) / self.bb)
+
+
+_graphs: OrderedDict = OrderedDict()  # key -> _ChunkGraph, oldest first
+
+
+def _chunk_graph(key, *args) -> _ChunkGraph:
+    """The cached ``_ChunkGraph`` of ``key``, captured the first time from
+    ``args`` (the solve's operand tensors and arguments)."""
+    graph = _graphs.get(key)
+    if graph is None:
+        graph = _graphs[key] = _ChunkGraph(*args)
+        while len(_graphs) > GRAPH_KEYS:
+            _graphs.popitem(last=False)
+    else:
+        _graphs.move_to_end(key)
+    return graph
 
 
 def pcg_fixed_trips(

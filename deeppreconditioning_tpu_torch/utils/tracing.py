@@ -32,6 +32,11 @@ The spans and counters the port records, and what reads them:
                               last included)
 ``pcg.system_iterations``     counter: systems x ``check_every`` per chunk,
                               the iterations executed, masked or not
+``pcg.graph_chunks``          counter: the single-system solver's chunks
+                              replayed from a CUDA graph (each also a
+                              ``pcg.chunk`` span)
+``pcg.graph_captures``        counter: the operand signatures whose start and
+                              chunk that solver captured
 ``fsai.setup``                ``neural_fsai_dense_preconditioner``; children
                               ``fsai.forward`` (the model: columns, B1, MLP)
                               and ``fsai.wrap`` (factor or strips, Gram form,

@@ -1,0 +1,409 @@
+"""The single-system PCG's graphed chunk (``solvers/cg.py``): when it
+engages, its key, the static copies of the operands, and on a card the
+graphed solve against the eager loop, bit for bit.
+
+The CPU tests run the graphed solve's bookkeeping with the capture
+replaced by running the captured function again at each replay.  The
+card tests use no JAX:
+``python -m pytest --noconftest -q -m cuda tests/test_torch_cg_graph.py``.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from deeppreconditioning_tpu_torch import _backend
+from deeppreconditioning_tpu_torch.data.poisson import poisson_coeff_dia
+from deeppreconditioning_tpu_torch.ops import trisolve
+from deeppreconditioning_tpu_torch.ops.dia_spmv import dia_matvec
+from deeppreconditioning_tpu_torch.ops.structured_fsai import (
+    bands_to_dia,
+    build_structured_plan,
+    make_structured_poly_apply_dia,
+    structured_setup,
+)
+from deeppreconditioning_tpu_torch.solvers import cg
+from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
+from deeppreconditioning_tpu_torch.sparse.ell import ELLMatrix
+from deeppreconditioning_tpu_torch.utils import tracing
+
+
+def _sludge_like(seed: int, n: int, n_pad: int, dtype, device=None):
+    """(ELL A, b, dense Jacobi M) of a random SPD 2-D five-point system
+    of ``n`` live rows in ``n_pad``."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n)))
+    lap1 = sp.diags([-np.ones(side - 1), 2 * np.ones(side),
+                     -np.ones(side - 1)], [-1, 0, 1])
+    lap = sp.kronsum(lap1, lap1).tocsr()[:n, :n]
+    a = (lap + sp.diags(10.0 ** rng.uniform(-1, 1, n))).tocsr()
+    ell = ELLMatrix.from_scipy(a, n_pad=n_pad, dtype=dtype, device=device)
+    b = torch.zeros(n_pad, dtype=dtype, device=device)
+    b[:n] = torch.as_tensor(rng.standard_normal(n), dtype=dtype)
+    m = torch.zeros((n_pad, n_pad), dtype=dtype, device=device)
+    idx = torch.arange(n, device=device)
+    m[idx, idx] = torch.as_tensor(1.0 / a.diagonal(), dtype=dtype,
+                                  device=device)
+    return ell, b, m
+
+
+_APPLIES = {d: make_structured_poly_apply_dia(d) for d in (0, 1)}
+
+
+def _structured(seed: int, shape, dtype, device=None, degree: int = 1):
+    """(A, b, m_data, apply) of a structured FSAI solve: the classical
+    factor with the wrap q = (1, q1) of degree 1 (q = (1,) at 0); one
+    apply a degree, as a caller keeps it."""
+    a = poisson_coeff_dia(shape, rng=np.random.default_rng(seed),
+                          dtype=dtype, device=device)
+    plan = build_structured_plan(shape, power=2)
+    bands, _ = structured_setup(a, plan)
+    c_up, c_low = bands_to_dia(bands, plan.offsets, a.n)
+    q = torch.tensor([1.0, 0.05 + 0.1 * seed][:degree + 1], dtype=dtype,
+                     device=device)
+    gen = torch.Generator().manual_seed(seed)
+    b = torch.zeros(a.n_pad, dtype=dtype)
+    b[:a.n] = torch.randn(a.n, generator=gen, dtype=dtype)
+    return a, b.to(device), (c_up, c_low, q, a), _APPLIES[degree]
+
+
+def _eager_twin(fn):
+    """``fn`` behind a closure not declared capture-safe: the eager loop
+    with the same kernels."""
+    return lambda operand, v: fn(operand, v)
+
+
+def _solve(matvec, a, b, apply_m, m, check_every=4):
+    return cg.preconditioned_conjugate_gradient(
+        matvec, a, b, apply_m, m, rtol=1e-8, max_iter=256,
+        check_every=check_every)
+
+
+def _same(got: cg.CGResult, want: cg.CGResult) -> None:
+    assert torch.equal(got.x, want.x)
+    assert torch.equal(got.iterations, want.iterations)
+    assert torch.equal(got.residual, want.residual)
+
+
+@pytest.fixture
+def fresh_graphs():
+    cg._graphs.clear()
+    yield cg._graphs
+    cg._graphs.clear()
+
+
+# -- the engagement rule -------------------------------------------------
+
+def _rule_case(name: str):
+    ell, b, m = _sludge_like(0, 40, 48, torch.float64)
+    if name == "cpu tensor":
+        return cg.ell_matvec, ell, b, cg.dense_matvec, m, "device"
+    if name == "leaf needs a gradient":
+        return (cg.ell_matvec, ell, b, cg.dense_matvec,
+                m.requires_grad_(), "grad")
+    if name == "leaf needs a gradient, grad mode off":
+        return (cg.ell_matvec, ell, b, cg.dense_matvec,
+                m.requires_grad_(), "device:no_grad")
+    if name == "undeclared ic_apply":
+        return cg.ell_matvec, ell, b, trisolve.ic_apply, None, "undeclared"
+    if name == "undeclared matvec":
+        return (_eager_twin(cg.ell_matvec), ell, b, cg.identity_apply,
+                None, "undeclared")
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "cpu tensor", "leaf needs a gradient",
+    "leaf needs a gradient, grad mode off", "undeclared ic_apply",
+    "undeclared matvec"])
+def test_engagement_rule(name):
+    matvec, a, b, apply_m, m, want = _rule_case(name)
+    want, _, mode = want.partition(":")
+    _, leaves = cg._graph_key(matvec, a, b, apply_m, m, 1e-8, 256, 4)
+    with torch.set_grad_enabled(mode != "no_grad"):
+        assert cg._eager_because(matvec, apply_m, b, leaves) == want
+
+
+@pytest.mark.parametrize("fn", [
+    cg.ell_matvec, cg.dense_matvec, cg.identity_apply, dia_matvec,
+    make_structured_poly_apply_dia(0), make_structured_poly_apply_dia(2)])
+def test_declared_pairs(fn):
+    """Every declared callable reads capture-safe; a declared pair on a
+    CPU tensor still runs eagerly, for the device alone."""
+    assert fn.capture_safe is True
+    b = torch.zeros(8)
+    assert cg._eager_because(fn, cg.identity_apply, b, [b]) == "device"
+
+
+def test_undeclared_callables():
+    for fn in (trisolve.ic_apply, _eager_twin(cg.dense_matvec)):
+        assert not getattr(fn, "capture_safe", False)
+
+
+# -- the key -------------------------------------------------------------
+
+def _key(matvec, a, b, apply_m, m, rtol=1e-8, max_iter=256, check_every=4):
+    return cg._graph_key(matvec, a, b, apply_m, m, rtol, max_iter,
+                         check_every)[0]
+
+
+def test_key_ignores_ell_n():
+    """Two ELL cases of other n and the same shapes share a key."""
+    e1, b1, m1 = _sludge_like(1, 40, 48, torch.float32)
+    e2, b2, m2 = _sludge_like(2, 44, 48, torch.float32)
+    assert e1.n != e2.n and e1.cols.shape == e2.cols.shape
+    k1 = _key(cg.ell_matvec, e1, b1, cg.dense_matvec, m1)
+    assert k1 == _key(cg.ell_matvec, e2, b2, cg.dense_matvec, m2)
+    hash(k1)
+
+
+def test_key_reads_what_the_chunk_reads():
+    e1, b1, m1 = _sludge_like(1, 40, 48, torch.float32)
+    base = _key(cg.ell_matvec, e1, b1, cg.dense_matvec, m1)
+    wider = ELLMatrix(cols=torch.cat([e1.cols, e1.cols[:, :1]], 1),
+                      vals=torch.cat([e1.vals, e1.vals[:, :1]], 1), n=e1.n)
+    others = [
+        _key(cg.ell_matvec, wider, b1, cg.dense_matvec, m1),
+        _key(cg.ell_matvec, e1, b1.double(), cg.dense_matvec, m1),
+        _key(cg.ell_matvec, e1, b1, cg.dense_matvec, m1.t()),
+        _key(cg.ell_matvec, e1, b1, cg.identity_apply, None),
+        _key(cg.ell_matvec, e1, b1, cg.dense_matvec, m1, rtol=1e-6),
+        _key(cg.ell_matvec, e1, b1, cg.dense_matvec, m1, max_iter=128),
+        _key(cg.ell_matvec, e1, b1, cg.dense_matvec, m1, check_every=8),
+    ]
+    assert len({base, *others}) == len(others) + 1
+
+
+def test_key_dia_offsets_and_sharing():
+    """Other DIA offsets give another key; so does an operand that is no
+    longer the same object as the operator."""
+    a, b, m, apply = _structured(0, (6, 5, 4), torch.float64)
+    base = _key(dia_matvec, a, b, apply, m)
+    shifted = DIAMatrix(vals=a.vals, offsets=tuple(o if o != 1 else 2
+                                                   for o in a.offsets),
+                        n=a.n)
+    assert _key(dia_matvec, shifted, b, apply, m[:3] + (shifted,)) != base
+    twin = DIAMatrix(vals=a.vals.clone(), offsets=a.offsets, n=a.n)
+    assert _key(dia_matvec, a, b, apply, m[:3] + (twin,)) != base
+    assert _key(dia_matvec, a, b, apply, m[:3] + (a,)) == base
+
+
+def test_key_refuses_other_operands():
+    e1, b1, _ = _sludge_like(1, 40, 48, torch.float32)
+    key, leaves = cg._graph_key(cg.ell_matvec, e1, b1, cg.dense_matvec,
+                                object(), 1e-8, 256, 4)
+    assert key is None and leaves is None
+
+
+# -- static copies -------------------------------------------------------
+
+def _operands(kind: str, seed: int):
+    if kind == "ell":
+        ell, b, m = _sludge_like(seed, 40, 48, torch.float32)
+        return ell, b, m
+    a, b, m, _ = _structured(seed, (6, 5, 4), torch.float64)
+    return a, b, m
+
+
+@pytest.mark.parametrize("kind", ["ell", "dia"])
+def test_static_copy_round_trip(kind):
+    """The static tree takes every leaf's layout and the sharing; a
+    second request's leaves copied in make it equal to that request."""
+    first = _operands(kind, 1)
+    leaves, memo = [], {}
+    static_leaves = []
+    statics = [cg._static_copy(t, memo, static_leaves) for t in first]
+    cg._signature(tuple(first), leaves, {})
+    assert len(leaves) == len(static_leaves)
+    for s_t, t in zip(static_leaves, leaves):
+        assert s_t.shape == t.shape and s_t.stride() == t.stride()
+        assert s_t.dtype == t.dtype and s_t.data_ptr() != t.data_ptr()
+    a_s, b_s, m_s = statics
+    if kind == "dia":
+        assert m_s[3] is a_s and a_s.offsets == first[0].offsets
+        assert a_s.launch_plan is None
+        assert len(leaves) == 5  # a, b, c_up, c_low, q: a once
+    else:
+        assert isinstance(a_s, ELLMatrix) and len(leaves) == 4
+    second = _operands(kind, 2)
+    leaves2 = []
+    cg._signature(tuple(second), leaves2, {})
+    for s_t, t in zip(static_leaves, leaves2):
+        s_t.copy_(t)
+    for s_t, t in zip(static_leaves, leaves2):
+        assert torch.equal(s_t, t)
+    if kind == "dia":
+        assert torch.equal(a_s.vals, second[0].vals)
+        assert torch.equal(m_s[2], second[2][2])
+    else:
+        assert torch.equal(a_s.cols, second[0].cols)
+        assert torch.equal(m_s, second[2])
+
+
+# -- the graphed solve's bookkeeping, capture replaced -------------------
+
+class _Rerun:
+    """A stand-in for a captured graph: a replay runs the function
+    again."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def replay(self):
+        self.fn()
+
+
+@pytest.fixture
+def rerun_graphs(monkeypatch, fresh_graphs):
+    """The graphed solve on the CPU: every call engages, and a replay
+    reruns what would have been captured."""
+    rule = cg._eager_because
+    monkeypatch.setattr(cg, "_eager_because", lambda *args: (
+        None if rule(*args) == "device" else rule(*args)))
+    monkeypatch.setattr(
+        cg._ChunkGraph, "_warm_and_capture",
+        lambda self: (_Rerun(self._start), (), _Rerun(self._chunk), ()))
+    return fresh_graphs
+
+
+@pytest.mark.parametrize("kind", ["ell", "dia"])
+def test_graphed_flow_matches_eager(kind, rerun_graphs):
+    """Three requests in a row, one key: each equals its eager solve, and
+    an earlier request's x stays as it was returned."""
+    results, kept = [], []
+    for seed in (1, 2, 3):
+        if kind == "ell":
+            a, b, m = _sludge_like(seed, 40, 48, torch.float64)
+            matvec, apply = cg.ell_matvec, cg.dense_matvec
+        else:
+            a, b, m, apply = _structured(seed, (6, 5, 4), torch.float64)
+            matvec = dia_matvec
+        got = _solve(matvec, a, b, apply, m)
+        want = _solve(_eager_twin(matvec), a, b, _eager_twin(apply), m)
+        _same(got, want)
+        assert 0 < int(got.iterations) < 256
+        results.append(got)
+        kept.append(got.x.clone())
+    assert len(rerun_graphs) == 1
+    graph = next(iter(rerun_graphs.values()))
+    for got, x in zip(results, kept):
+        assert torch.equal(got.x, x)
+        assert got.x.data_ptr() != graph.state.x.data_ptr()
+        assert got.iterations.data_ptr() != graph.state.k.data_ptr()
+
+
+def test_graphed_flow_counters(rerun_graphs):
+    """Under a profiler: one capture, every chunk a graph chunk, the
+    iterations counted as the eager loop counts them."""
+    a, b, m = _sludge_like(4, 40, 48, torch.float64)
+    tracing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = _solve(cg.ell_matvec, a, b, cg.dense_matvec, m)
+        _solve(cg.ell_matvec, a, b, cg.dense_matvec, m)
+    snap = tracing.snapshot()
+    tracing.reset()
+    chunks = snap["spans"]["pcg.chunk"]["calls"]
+    assert chunks == 2 * -(-int(got.iterations) // 4)
+    assert snap["counters"]["pcg.graph_chunks"] == chunks
+    assert snap["counters"]["pcg.graph_captures"] == 1
+    assert snap["counters"]["pcg.system_iterations"] == 4 * chunks
+
+
+def test_graph_cache_is_bounded(rerun_graphs):
+    for check_every in range(1, cg.GRAPH_KEYS + 3):
+        a, b, m = _sludge_like(5, 40, 48, torch.float64)
+        _solve(cg.ell_matvec, a, b, cg.dense_matvec, m, check_every)
+    assert len(rerun_graphs) == cg.GRAPH_KEYS
+    assert [key[-1] for key in rerun_graphs] == list(
+        range(3, cg.GRAPH_KEYS + 3))
+
+
+def test_launch_replay_counts():
+    """A capture's counts are taken back out and a replay adds them."""
+    before = _backend.launch_counts()["dia_spmv"]
+    state = _backend.launch_state()
+    _backend.count_launch("dia_spmv")
+    _backend.count_launch("gauss_jordan", torch.float64)
+    delta = _backend.launches_since(state)
+    assert _backend.launch_counts()["dia_spmv"] == before
+    assert delta[0] == {"dia_spmv": 1, "gauss_jordan": 1}
+    assert delta[1] == {("gauss_jordan", "float64"): 1}
+    _backend.add_launches(delta)
+    _backend.add_launches(delta)
+    assert _backend.launch_counts()["dia_spmv"] == before + 2
+
+
+# -- on the card ---------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _sludge_case(seed: int, device):
+    """A generated sludge case as the per-case cell runs it: ELL A of
+    n_pad 1024, b, a dense 1024^2 M (Jacobi, with a symmetric band)."""
+    from deeppreconditioning_tpu_torch.data.fvm import (
+        generate_sludge_case,
+        numpy_assembly,
+    )
+
+    with numpy_assembly():
+        case = generate_sludge_case(np.random.default_rng(seed))
+    a = case.matrix.tocsr()
+    n = a.shape[0]
+    ell = ELLMatrix.from_scipy(a, n_pad=1024, dtype=torch.float32,
+                               device=device)
+    b = torch.zeros(1024, dtype=torch.float32, device=device)
+    b[:n] = torch.as_tensor(case.rhs, dtype=torch.float32, device=device)
+    d = torch.as_tensor(1.0 / a.diagonal(), dtype=torch.float32,
+                        device=device)
+    m = torch.zeros((1024, 1024), dtype=torch.float32, device=device)
+    idx = torch.arange(n, device=device)
+    m[idx, idx] = d
+    m[idx[1:], idx[:-1]] = m[idx[:-1], idx[1:]] = 0.05 * torch.sqrt(
+        d[1:] * d[:-1])
+    return ell, b, m
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_cuda_graphed_matches_eager(cuda_device, fresh_graphs):
+    """Three sludge requests and three structured requests, other
+    operators, M and q each: every graphed solve equals its eager one bit
+    for bit, an earlier x survives the later requests, and once the key
+    is captured B2's launch count equals the eager solve's."""
+    kept = []
+    for seed in (0, 1, 2):
+        a, b, m = _sludge_case(seed, cuda_device)
+        assert cg._eager_because(cg.ell_matvec, cg.dense_matvec, b,
+                                 [m]) is None
+        got = _solve(cg.ell_matvec, a, b, cg.dense_matvec, m, 8)
+        want = _solve(_eager_twin(cg.ell_matvec), a, b,
+                      _eager_twin(cg.dense_matvec), m, 8)
+        _same(got, want)
+        assert float(got.residual) < 1e-8
+        kept.append((got, got.x.clone()))
+    a, b, m, apply = _structured(3, (16, 16, 16), torch.float32,
+                                 cuda_device)
+    _solve(dia_matvec, a, b, apply, m, 8)  # captures the key
+    for seed in (0, 1, 2):  # the key captured: only replays count
+        a, b, m, apply = _structured(seed, (16, 16, 16), torch.float32,
+                                     cuda_device)
+        _backend.reset_launch_counts()
+        got = _solve(dia_matvec, a, b, apply, m, 8)
+        graphed = _backend.launch_counts()["dia_spmv"]
+        _backend.reset_launch_counts()
+        want = _solve(_eager_twin(dia_matvec), a, b, _eager_twin(apply), m,
+                      8)
+        assert graphed == _backend.launch_counts()["dia_spmv"] > 0
+        _same(got, want)
+        assert float(got.residual) < 1e-8
+        kept.append((got, got.x.clone()))
+    assert len(fresh_graphs) == 2
+    for got, x in kept:
+        assert torch.equal(got.x, x)
