@@ -3,7 +3,7 @@
     python -m deeppreconditioning_tpu_torch.bench.scaling [--shapes 64,128]
         [--ckpt CKPT] [--smoother-ckpt CKPT] [--reps 5] [--sigma 1.0]
         [--rhs random|ax] [--k-solves 2,4,8] [--seq-out CSV] [--out CSV]
-        [--no-gmg] [--with-amg] [--device cpu]
+        [--no-gmg] [--with-amg] [--problem poisson|hpcg] [--device cpu]
 
 Counterpart of ``scripts/scaling_learned.py::run_scaling`` as
 ``bench.py``'s scaling section calls it: variable-coefficient Poisson
@@ -23,6 +23,15 @@ one build timed on the host clock up to the device sync (its host parts
 in ``ScalingRun.amg_builds``), applied as a V(1,1)-cycle; it sits out
 the sequences, as in the reference.  Every CG operator is a DIA matvec
 (kernel B2 on the card).
+
+``--problem hpcg`` runs HPCG's problem instead (``data/poisson.
+hpcg_operator``: the 27-point stencil, 26 on the diagonal, -1 for each
+neighbour inside the box; b = A 1, so x* = 1 and ``x_rel_err`` is
+reported; ``--sigma`` and ``--rhs`` do not apply) through the same
+calls, with the techniques vanilla, jacobi, fsai and learned; the
+structured plan follows the operator's stencil (the 3^3 box), so the
+learned head must fit it: ``--ckpt`` a head of width 14 at power 1, such
+as ``portbench/weights/structured_w14_deg1.msgpack``.
 
 Per shape and technique: the setup, timed with CUDA events (median of
 ``reps`` after a warm-up), the chunked PCG solve for the iteration count
@@ -55,6 +64,8 @@ import torch
 from deeppreconditioning_tpu_torch import _backend
 from deeppreconditioning_tpu_torch.bench.suite import _diag_apply
 from deeppreconditioning_tpu_torch.data.poisson import (
+    hpcg_operator,
+    hpcg_rhs,
     poisson_coeff_dia,
     poisson_rhs_sequence,
 )
@@ -106,6 +117,8 @@ TIMING_REPS = 5
 TECHNIQUES = ("vanilla", "jacobi", "fsai", "learned", "gmg_jacobi",
               "gmg_learned")
 STRUCTURED_TECHNIQUES = ("fsai", "learned", "gmg_learned")
+PROBLEMS = ("poisson", "hpcg")
+HPCG_TECHNIQUES = ("vanilla", "jacobi", "fsai", "learned")
 CSV_COLUMNS = ("shape", "technique", "n", "sigma", "iterations", "setup_s",
                "solve_s", "total_s", "converged", "x_rel_err",
                "safeguard_fallback")
@@ -144,11 +157,20 @@ class ScalingRun:
 
 
 def scaling_problem(side: int, dtype=torch.float32, device=None,
-                    sigma: float = SIGMA, rhs: str = "random"):
+                    sigma: float = SIGMA, rhs: str = "random",
+                    problem: str = "poisson"):
     """The side^3 operator (sorted DIA bands; ``sigma`` 0: constant
     coefficients), its rhs and the known solution x* (None for the random
-    rhs), rounded through float32 as the reference builds them."""
+    rhs), rounded through float32 as the reference builds them.
+    ``problem="hpcg"``: HPCG's operator, b = A 1 and x* = 1."""
     shape = (side, side, side)
+    if problem == "hpcg":
+        a = hpcg_operator(shape, dtype=dtype, device=device)
+        x_star = torch.zeros(a.n_pad, dtype=dtype, device=device)
+        x_star[:a.n] = 1.0
+        return a, hpcg_rhs(a), x_star
+    if problem != "poisson":
+        raise ValueError(f"problem {problem!r} is not one of {PROBLEMS}")
     if sigma > 0:
         a = poisson_coeff_dia(shape, rng=np.random.default_rng(COEFF_SEED),
                               sigma=sigma, dtype=dtype, device=device)
@@ -234,7 +256,7 @@ def amg_setup(a, record: dict | None = None):
 def _setups(a, shape, models):
     """technique -> (apply_m, setup builder or None)."""
     learned, power, smoother, smoother_power = models
-    plan = build_structured_plan(shape, power=power)
+    plan = build_structured_plan(shape, power=power, a_offsets=a.offsets)
 
     def structured(model):
         def build():
@@ -283,17 +305,21 @@ def run_scaling(device, shapes=SHAPES, dtype=torch.float32,
                 techniques=TECHNIQUES, sigma: float = SIGMA,
                 rhs: str = "random", k_solves=(), seq_out: Path | None = None,
                 ckpt=None, smoother_ckpt=None,
-                with_amg: bool = False) -> ScalingRun:
+                with_amg: bool = False,
+                problem: str = "poisson") -> ScalingRun:
     """Run the scaling comparison on ``device`` (see the module
     docstring); the kernel counters are reset per technique."""
     device = torch.device(device)
     models = load_models(dtype, device, ckpt, smoother_ckpt)
     if with_amg and "amg" not in techniques:
         techniques = (*techniques, "amg")
+    if problem == "hpcg":
+        techniques = tuple(t for t in techniques if t in HPCG_TECHNIQUES)
     run = ScalingRun()
     for side in shapes:
         shape = (side, side, side)
-        a, b, x_star = scaling_problem(side, dtype, device, sigma, rhs)
+        a, b, x_star = scaling_problem(side, dtype, device, sigma, rhs,
+                                       problem)
         setups = _setups(a, shape, models)
         for name in techniques:
             apply_m, build = setups[name]
@@ -409,6 +435,10 @@ def main(argv=None) -> None:
     parser.add_argument("--with-amg", action="store_true",
                         help="add the aggregation-AMG technique (host "
                         "setup)")
+    parser.add_argument("--problem", default="poisson", choices=PROBLEMS,
+                        help="hpcg: HPCG's 27-point operator with b = A 1 "
+                        "(vanilla, jacobi, fsai, learned; --ckpt a width-14 "
+                        "power-1 head)")
     parser.add_argument("--device", default=None,
                         help="'cpu' for the CPU; the card otherwise")
     args = parser.parse_args(argv)
@@ -422,7 +452,7 @@ def main(argv=None) -> None:
                       techniques=techniques, sigma=args.sigma, rhs=args.rhs,
                       k_solves=ks, seq_out=Path(args.seq_out) if ks else None,
                       ckpt=args.ckpt, smoother_ckpt=args.smoother_ckpt,
-                      with_amg=args.with_amg)
+                      with_amg=args.with_amg, problem=args.problem)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {name}; CSV {args.out}" + (f", {args.seq_out}" if ks

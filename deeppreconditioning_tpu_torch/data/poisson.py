@@ -8,10 +8,17 @@ the host into the DIA layout of ``sparse/dia.py``; ``poisson_rhs_sequence``
 (the multi-RHS protocol's drifting known solutions) and ``poisson_family``
 (seeded operators with known-solution right-hand sides).  Their operator
 products run through ``ops.dia_spmv.dia_matvec`` on the operator's device.
+
+``hpcg_operator`` and ``hpcg_rhs`` are the HPCG benchmark's problem
+(HPCG 3.1, ``GenerateProblem_ref.cpp``) on one rank's box: the 27-point
+stencil with 26 on the diagonal and -1 for each neighbour inside the box,
+and b = A 1; the operator is made on its device, with no host array of
+its size.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -125,3 +132,43 @@ def poisson_family(
         mats.append(a)
         rhss.append(_product(a, x_star))
     return mats, rhss
+
+
+def hpcg_operator(shape: Sequence[int], dtype=torch.float32,
+                  device=None) -> DIAMatrix:
+    """HPCG's matrix on an nx x ny x nz box as DIA, its 27 bands sorted by
+    offset: 26 on the diagonal, -1 for each of the up to 26 neighbours
+    (every cell within one step along each axis), neighbours outside the
+    box dropped (a one-rank HPCG run: no halo)."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 3:
+        raise ValueError(f"HPCG's box is 3-D, not {shape}")
+    n = int(np.prod(shape))
+    n_pad = pad_rows(n)
+    strides = [int(np.prod(shape[i + 1:])) for i in range(3)]
+    steps = sorted(itertools.product((-1, 0, 1), repeat=3),
+                   key=lambda d: int(np.dot(d, strides)))
+    idx = torch.arange(n_pad, device=device)
+    coords, rem = [], idx
+    for stride in strides:
+        coords.append(rem // stride)
+        rem = rem - coords[-1] * stride
+    vals = torch.zeros((len(steps), n_pad), dtype=dtype, device=device)
+    for k, d in enumerate(steps):
+        inside = idx < n
+        for ax, step in enumerate(d):
+            c = coords[ax] + step
+            inside &= (c >= 0) & (c < shape[ax])
+        vals[k] = inside * (26.0 if not any(d) else -1.0)
+    return DIAMatrix(vals=vals,
+                     offsets=tuple(int(np.dot(d, strides)) for d in steps),
+                     n=n)
+
+
+def hpcg_rhs(a: DIAMatrix) -> torch.Tensor:
+    """HPCG's right-hand side b = A 1 (the exact solution is all ones on
+    the n rows), zero on the padding, on the operator's device."""
+    ones = torch.zeros(a.n_pad, dtype=a.vals.dtype, device=a.vals.device)
+    ones[:a.n] = 1.0
+    with torch.no_grad():
+        return dia_matvec(a, ones)

@@ -1,10 +1,13 @@
-"""Structured-grid FSAI: the learned preconditioner at 64^3 / 128^3.
+"""Structured-grid FSAI: the learned preconditioner at 64^3 - 256^3.
 
 Counterpart of ``deeppreconditioning_tpu/ops/structured_fsai.py``.  On a
 structured grid every column's FSAI pattern is the same set of linear
 offsets (the tril of the stencil-graph power), so
 
-  * the pattern is a static tuple of offsets (``StructuredFSAIPlan``);
+  * the pattern is a static tuple of offsets (``StructuredFSAIPlan``),
+    built from the operator's own stencil: the 2d+1-point star of the
+    Poisson operators, or the 3^d box of a 27-point operator such as
+    HPCG's (``data/poisson.hpcg_operator``), read from its band offsets;
   * the local systems A~[S_j, S_j] are read from the DIA bands at static
     shifts, and solved by kernel B1 (``ops/gauss_jordan.py``);
   * the factor C is stored in offset-band form bands[k, j] = C[j + o_k, j]
@@ -31,6 +34,7 @@ runs without a gradient, as in the reference.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -96,31 +100,61 @@ def _strides(shape: Sequence[int]) -> np.ndarray:
                     np.int64)
 
 
-def stencil_displacements(ndim: int) -> np.ndarray:
-    """Displacement vectors of the standard 2*ndim+1-point stencil."""
-    disp = [np.zeros(ndim, np.int64)]
-    for ax in range(ndim):
-        for sgn in (-1, 1):
-            d = np.zeros(ndim, np.int64)
-            d[ax] = sgn
-            disp.append(d)
+def stencil_displacements(ndim: int, a_offsets=None,
+                          shape: Sequence[int] | None = None) -> np.ndarray:
+    """Displacement vectors of the operator's stencil.  Without
+    ``a_offsets``, the standard 2*ndim+1-point star; with them, each
+    linear offset of the operator's bands on ``shape`` read back as the
+    vector of {-1, 0, 1}^ndim with that offset and the fewest nonzero
+    entries (a 7-point operator gives its star, a 27-point one its 3^3
+    box).  Raises where an offset has no such vector or two of them."""
+    if a_offsets is None:
+        disp = [np.zeros(ndim, np.int64)]
+        for ax in range(ndim):
+            for sgn in (-1, 1):
+                d = np.zeros(ndim, np.int64)
+                d[ax] = sgn
+                disp.append(d)
+        return np.stack(disp)
+    if shape is None or len(shape) != ndim:
+        raise ValueError("reading a stencil from offsets needs the shape")
+    steps = np.array(list(itertools.product((-1, 0, 1), repeat=ndim)),
+                     np.int64)
+    lin = steps @ _strides(shape)
+    nonzero = np.count_nonzero(steps, axis=1)
+    disp = []
+    for off in sorted({int(o) for o in a_offsets}):
+        hits = np.flatnonzero(lin == off)
+        if hits.size == 0:
+            raise ValueError(f"offset {off} is no stencil step on {shape}")
+        least = hits[nonzero[hits] == nonzero[hits].min()]
+        if least.size > 1:
+            raise ValueError(f"offset {off} is {least.size} stencil steps "
+                             f"on {shape}")
+        disp.append(steps[least[0]])
     return np.stack(disp)
 
 
-def build_structured_plan(shape: Sequence[int],
-                          power: int = 2) -> StructuredFSAIPlan:
+def build_structured_plan(shape: Sequence[int], power: int = 2,
+                          a_offsets=None) -> StructuredFSAIPlan:
     """Pattern = tril of the stencil-graph ``power`` (every sum of at most
-    ``power`` stencil steps with a nonnegative linear offset); cached per
-    (shape, power)."""
-    return _build_structured_plan_cached(tuple(int(s) for s in shape),
-                                         int(power))
+    ``power`` stencil steps with a nonnegative linear offset), where the
+    stencil is the operator's (``stencil_displacements`` of its band
+    offsets ``a_offsets``; the 2*ndim+1-point star without them); cached
+    per (shape, power, stencil).  Records the host span
+    ``structured.plan`` (``utils/tracing.py``)."""
+    shape = tuple(int(s) for s in shape)
+    with span("structured.plan"):
+        steps = stencil_displacements(len(shape), a_offsets, shape)
+        return _build_structured_plan_cached(
+            shape, int(power), tuple(sorted(map(tuple, steps.tolist()))))
 
 
 @functools.lru_cache(maxsize=None)
-def _build_structured_plan_cached(shape: Tuple[int, ...],
-                                  power: int) -> StructuredFSAIPlan:
+def _build_structured_plan_cached(shape: Tuple[int, ...], power: int,
+                                  steps: tuple) -> StructuredFSAIPlan:
     ndim = len(shape)
-    steps = stencil_displacements(ndim)
+    steps = np.array(steps, np.int64).reshape(-1, ndim)
     reach = {tuple(np.zeros(ndim, np.int64))}
     frontier = set(reach)
     for _ in range(power):
@@ -132,9 +166,7 @@ def _build_structured_plan_cached(shape: Tuple[int, ...],
         reach |= nxt
     strides = _strides(shape)
     disp = np.array(sorted(reach), np.int64).reshape(-1, ndim)
-    a_offsets = tuple(sorted(
-        int(d @ strides) for d in stencil_displacements(ndim)
-    ))
+    a_offsets = tuple(sorted(int(d @ strides) for d in steps))
     return StructuredFSAIPlan(shape, disp, a_offsets)
 
 
@@ -355,7 +387,8 @@ def make_structured_poly_apply_dia(degree: int):
     operator matvec one DIA matvec (kernel B2 on the card);
     m_data = (c_up, c_low, q_coeffs, a_raw).  The apply is declared
     ``capture_safe``: the single-system solver replays it from a CUDA
-    graph."""
+    graph; it declares the 2 * degree products with A a call makes
+    (``operator_products``), which the solvers count."""
 
     @capture_safe
     def apply_fn(m_data, r: torch.Tensor) -> torch.Tensor:
@@ -372,6 +405,7 @@ def make_structured_poly_apply_dia(degree: int):
 
         return dia_matvec(c_low, q_(q_(dia_matvec(c_up, r))))
 
+    apply_fn.operator_products = 2 * degree
     return apply_fn
 
 

@@ -14,7 +14,10 @@ on the host once per chunk.  Iteration counts are exact per iteration,
 not rounded to chunks.  Under a ``torch.profiler`` the two chunked
 solvers record the spans ``pcg.solve``, ``pcg.chunk`` and ``pcg.read``
 and count the iterations they execute, masked ones included, in
-``pcg.system_iterations`` (``utils/tracing.py``).  ``pcg_fixed_trips``
+``pcg.system_iterations``, and the products with the system's operator
+they enqueue in ``pcg.operator_products`` (``utils/tracing.py``): one
+an iteration and at the start, and those the preconditioner makes, as
+``apply_m`` declares them (``operator_products``).  ``pcg_fixed_trips``
 runs the same masked iteration a fixed number of times with no host read
 at all, so its counts equal the chunked solver's whenever ``trips``
 covers the solve.
@@ -47,10 +50,11 @@ same order as the eager loop, so the same bits.  The first call of a key
 runs the start and one iteration eagerly on a side stream (its warm-up),
 then captures both graphs there.  The ``_backend`` launch counts a
 capture makes are taken back out and added on every replay, so they
-count the launches that ran.  The spans stay outside the graphs, and the
-graphed solve counts ``pcg.graph_chunks`` (its chunks) and
-``pcg.graph_captures`` (its keys captured) beside
-``pcg.system_iterations``.
+count the launches that ran; a key likewise keeps the operator products
+its start and its chunk enqueue, and each replay counts them.  The spans
+stay outside the graphs, and the graphed solve counts
+``pcg.graph_chunks`` (its chunks) and ``pcg.graph_captures`` (its keys
+captured) beside ``pcg.system_iterations``.
 
 ``batched_preconditioned_conjugate_gradient`` and
 ``batched_pcg_fixed_trips`` solve B independent systems at once, x and b
@@ -97,6 +101,14 @@ def capture_safe(fn: Callable) -> Callable:
     recomputes from its operands' buffers.  Returns ``fn``."""
     fn.capture_safe = True
     return fn
+
+
+def operator_products(apply_m) -> int:
+    """The products with the system's operator that one PCG iteration (or
+    the start) enqueues: the solver's own, and those one call of
+    ``apply_m`` makes, as it declares them in its attribute
+    ``operator_products`` (none where it declares nothing)."""
+    return 1 + getattr(apply_m, "operator_products", 0)
 
 
 @capture_safe
@@ -176,7 +188,9 @@ def preconditioned_conjugate_gradient(
             return _chunk_graph(key, leaves, matvec, a_data, b, apply_m,
                                 m_data, rtol, max_iter,
                                 check_every).solve(leaves)
+        products = operator_products(apply_m)
         s, bb = _pcg_start(matvec, a_data, b, apply_m, m_data, rtol)
+        count("pcg.operator_products", products)
         while True:
             with span("pcg.read", dev):
                 running = not bool(s.done | (s.k >= max_iter))
@@ -187,6 +201,7 @@ def preconditioned_conjugate_gradient(
                     s = _masked_iteration(matvec, a_data, apply_m, m_data, s,
                                           bb, rtol, max_iter)
             count("pcg.system_iterations", check_every)
+            count("pcg.operator_products", check_every * products)
         return CGResult(x=s.x, iterations=s.k,
                         residual=torch.dot(s.r, s.r) / bb)
 
@@ -279,6 +294,7 @@ class _ChunkGraph:
     def __init__(self, leaves, matvec, a_data, b, apply_m, m_data, rtol,
                  max_iter, check_every) -> None:
         self.matvec, self.apply_m = matvec, apply_m
+        self.products = operator_products(apply_m)
         self.rtol, self.max_iter = rtol, max_iter
         self.check_every, self.device = check_every, b.device
         self.leaves, memo = [], {}
@@ -351,6 +367,7 @@ class _ChunkGraph:
         self._load(leaves)
         self.start_graph.replay()
         _backend.add_launches(self.start_counts)
+        count("pcg.operator_products", self.products)
         while True:
             with span("pcg.read", dev):
                 running = not bool(self.stop)
@@ -361,6 +378,7 @@ class _ChunkGraph:
                 _backend.add_launches(self.chunk_counts)
             count("pcg.graph_chunks")
             count("pcg.system_iterations", self.check_every)
+            count("pcg.operator_products", self.check_every * self.products)
         s = self.state
         return CGResult(x=s.x.clone(), iterations=s.k.clone(),
                         residual=torch.dot(s.r, s.r) / self.bb)
@@ -552,7 +570,9 @@ def batched_preconditioned_conjugate_gradient(
     x (B, n), iterations (B,) int32, residual (B,)."""
     dev = b.device
     with span("pcg.solve", dev):
+        products = operator_products(apply_m)
         s, bb = _batched_start(matvec, a_data, b, apply_m, m_data, rtol)
+        count("pcg.operator_products", products)
         while True:
             with span("pcg.read", dev):
                 running = bool((~s.done & (s.k < max_iter)).any())
@@ -563,6 +583,7 @@ def batched_preconditioned_conjugate_gradient(
                     s = _batched_iteration(matvec, a_data, apply_m, m_data,
                                            s, bb, rtol, max_iter)
             count("pcg.system_iterations", b.shape[0] * check_every)
+            count("pcg.operator_products", check_every * products)
         return CGResult(x=s.x, iterations=s.k, residual=_dots(s.r, s.r) / bb)
 
 

@@ -37,10 +37,20 @@ The spans and counters the port records, and what reads them:
                               ``pcg.chunk`` span)
 ``pcg.graph_captures``        counter: the operand signatures whose start and
                               chunk that solver captured
+``pcg.operator_products``     counter: the products with the system's
+                              operator that both solvers enqueue, at the
+                              start and in each chunk: one an iteration,
+                              and those the preconditioner declares
+                              (``operator_products``, 2 x degree in the
+                              structured polynomial apply); a replayed start
+                              or chunk adds what its capture enqueued
 ``fsai.setup``                ``neural_fsai_dense_preconditioner``; children
                               ``fsai.forward`` (the model: columns, B1, MLP)
                               and ``fsai.wrap`` (factor or strips, Gram form,
                               polynomial wrap)
+``structured.plan``           ``build_structured_plan`` (host): the stencil
+                              read from the operator's offsets and the
+                              cached pattern
 ``structured.setup``          ``structured_setup``; children
                               ``structured.columns`` (sort, scale, local
                               solves), ``structured.refine`` (the MLP) and

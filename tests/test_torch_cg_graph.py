@@ -311,6 +311,29 @@ def test_graphed_flow_counters(rerun_graphs):
     assert snap["counters"]["pcg.system_iterations"] == 4 * chunks
 
 
+def test_graphed_flow_counts_operator_products(rerun_graphs):
+    """A replayed start and chunk add the operator products their capture
+    enqueued (the replay here runs nothing that counts), as a replay adds
+    the ``_backend`` launch counts: the eager loop's count, products of
+    the structured apply included."""
+    counts = []
+    for matvec in (dia_matvec, _eager_twin(dia_matvec)):
+        a, b, m, apply = _structured(2, (6, 5, 4), torch.float64)
+        tracing.reset()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = _solve(matvec, a, b, apply, m)
+        snap = tracing.snapshot()
+        tracing.reset()
+        chunks = -(-int(got.iterations) // 4)
+        assert snap["counters"]["pcg.operator_products"] == (
+            (4 * chunks + 1) * 3)
+        counts.append(snap["counters"].get("pcg.graph_chunks", 0))
+    assert counts[0] > 0 and counts[1] == 0  # graphed, then eager
+    graph = next(iter(rerun_graphs.values()))
+    assert graph.products == 3
+
+
 def test_graph_cache_is_bounded(rerun_graphs):
     for check_every in range(1, cg.GRAPH_KEYS + 3):
         a, b, m = _sludge_like(5, 40, 48, torch.float64)

@@ -26,6 +26,7 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
 )
 from deeppreconditioning_tpu_torch.ops import fsai
 from deeppreconditioning_tpu_torch.ops import structured_fsai as sf
+from deeppreconditioning_tpu_torch.ops.dia_spmv import dia_matvec
 from deeppreconditioning_tpu_torch.solvers.cg import (
     batched_preconditioned_conjugate_gradient,
     dense_matvec,
@@ -172,6 +173,43 @@ def test_batched_pcg_chunks_reads_and_system_iterations(check_every):
     assert executed == chunks * check_every * batch >= sum(its)
 
 
+@pytest.mark.parametrize("degree", [0, 1, 2])
+def test_pcg_counts_operator_products(degree):
+    """``pcg.operator_products``: one product with A at the start and one
+    an iteration executed, plus the 2 x degree the structured polynomial
+    apply declares (B = C^T A C once per Horner step of each q)."""
+    shape = (6, 5, 4)
+    a = poisson_coeff_dia(shape, rng=np.random.default_rng(degree),
+                          dtype=torch.float64)
+    plan = sf.build_structured_plan(shape, power=2, a_offsets=a.offsets)
+    bands, _ = sf.structured_setup(a, plan)
+    c_up, c_low = sf.bands_to_dia(bands, plan.offsets, a.n)
+    q = torch.tensor([1.0, 0.05, 0.01][:degree + 1], dtype=torch.float64)
+    apply = sf.make_structured_poly_apply_dia(degree)
+    b = torch.zeros(a.n_pad, dtype=torch.float64)
+    b[:a.n] = torch.randn(a.n, generator=torch.Generator().manual_seed(1),
+                          dtype=torch.float64)
+    with _profiled():
+        res = preconditioned_conjugate_gradient(
+            dia_matvec, a, b, apply, (c_up, c_low, q, a), check_every=4)
+    snap = tracing.snapshot()
+    chunks = math.ceil(int(res.iterations) / 4)
+    assert float(res.residual) < 1e-8
+    assert apply.operator_products == 2 * degree
+    assert snap["counters"]["pcg.operator_products"] == (
+        (4 * chunks + 1) * (1 + 2 * degree))
+
+
+def test_batched_pcg_counts_operator_products():
+    a, b = _spd(24, seed=4, batch=3)
+    with _profiled():
+        res = batched_preconditioned_conjugate_gradient(
+            _bmv, a, b, rtol=1e-10, check_every=5)
+    snap = tracing.snapshot()
+    chunks = math.ceil(int(res.iterations.max()) / 5)
+    assert snap["counters"]["pcg.operator_products"] == 5 * chunks + 1
+
+
 def test_pcg_without_profiler_counts_nothing():
     a, b = _spd(24, seed=3)
     res = preconditioned_conjugate_gradient(dense_matvec, a, b,
@@ -221,7 +259,7 @@ def _structured_setup():
         REPO / "assets" / "checkpoints_structured" / "deg1_random.msgpack"))
     with torch.no_grad():
         sf.structured_setup(a, plan, model.double().eval())
-    return {"structured.setup": None,
+    return {"structured.plan": None, "structured.setup": None,
             "structured.columns": "structured.setup",
             "structured.refine": "structured.setup",
             "structured.safeguard": "structured.setup"}
