@@ -30,6 +30,9 @@ gather from the dense matrix gives the same values).
 system (``compare_meshes``), split into its input preparation (the host
 plan, moved to the device: ``neural_fsai_case_plan``) and the setup proper
 (``neural_fsai_case_m``) so that a caller can time the latter alone.
+On a CUDA device ``neural_fsai_dense_preconditioner`` replays the forward
+and the wrap of a setup whose shapes come back from two CUDA graphs (see
+its docstring).
 
 The parameters enter after the local solves, so the solves carry no
 gradient to the parameters, in the reference as here: when the operand
@@ -40,6 +43,7 @@ refuses an operand that needs one: it would drop the gradient.)
 from __future__ import annotations
 
 import math
+from dataclasses import fields, replace
 from typing import List, NamedTuple
 
 import numpy as np
@@ -66,7 +70,7 @@ from deeppreconditioning_tpu_torch.ops.fsai import (
     tril_power_pattern,
     tril_power_pattern_capped,
 )
-from deeppreconditioning_tpu_torch.utils.tracing import span
+from deeppreconditioning_tpu_torch.utils.tracing import count, span
 
 LAYERS = ("alpha", "beta", "dense0", "dense1")  # Flax's (sorted) names
 
@@ -130,8 +134,9 @@ class NeuralFSAI(nn.Module):
         refined = c * torch.exp(alpha) + (1.0 - pos1h) * beta * c_diag
         c_out = refined * live
 
-        q0 = torch.zeros(self.poly_degree + 1, dtype=c.dtype, device=c.device)
-        q0[0] = 1.0
+        # e0 by a kernel (no host copy, so a CUDA graph can capture it)
+        q0 = torch.eye(1, self.poly_degree + 1, dtype=c.dtype,
+                       device=c.device)[0]
         q = (q0 + self.q_coeffs).expand(*c.shape[:-2], self.poly_degree + 1)
         return NeuralFSAIOut(c_vals=c_out, q_coeffs=q)
 
@@ -227,28 +232,181 @@ def neural_fsai_dense_preconditioner(
     Gram form from strips on a range plan, through the dense factor on a
     generic plan.  One case, or a group plan with stacked operands,
     scales and one ``n0`` per case (the forward is then one B1 launch).
-    ``precision`` is the polynomial wrap's (``ops/fsai._matmul``).  Under
-    a ``torch.profiler`` it records the span ``fsai.setup`` with the
-    children ``fsai.forward`` and ``fsai.wrap`` (``utils/tracing.py``)."""
+    ``n0`` is an int or a 0-dim integer tensor for a case, a ``(cases,)``
+    one for a group.  ``precision`` is the polynomial wrap's
+    (``ops/fsai._matmul``).  Under a ``torch.profiler`` it records the
+    span ``fsai.setup`` with the children ``fsai.forward`` and
+    ``fsai.wrap`` (``utils/tracing.py``).
+
+    On a CUDA device a setup whose key comes back is replayed from two
+    CUDA graphs, the forward's and the wrap's: when the operand is on a
+    CUDA device and grad mode is off or neither an operand tensor nor a
+    parameter needs a gradient (``_eager_because``); every other call (the
+    CPU, a caller under grad) runs eagerly.  The key is the model object,
+    its parameters' addresses, shapes and dtypes, the plan's class, each
+    plan tensor's shape, strides, dtype and device, the plan's ``h`` and
+    ``lo_static``, the operand's and the scales' layout, whether ``n0`` is
+    one value or one per case (not its value), ``dtype`` and
+    ``precision``.  A key's first call runs eagerly and is only counted
+    (a caller whose shapes never repeat pays nothing more); its second
+    runs the setup eagerly on a side stream, returns that M and captures
+    both graphs there; every later call is a replay.  The keys live in
+    ``SETUP_GRAPHS``, a ``_backend.GraphCache`` of ``_backend.GRAPH_KEYS``
+    keys, the least recently used dropped first.  A key owns static copies
+    of the plan tensors, the operand, the scales and ``n0`` (an int64
+    device tensor), and both graphs in one memory pool; the parameters
+    are read where they are.  A replay copies the inputs in, replays the
+    forward inside ``fsai.forward`` and the wrap inside ``fsai.wrap``, and
+    returns a fresh copy of M: the same kernels in the same order as the
+    eager setup, so the same bits.  The ``_backend`` launch counts of a
+    capture are taken back out and added on every replay, so every setup
+    counts its launches once.  Each replayed setup counts
+    ``fsai.graph_setups``, each key captured ``fsai.graph_captures``."""
     dev = operand.device
     with span("fsai.setup", dev):
+        key, leaves = _setup_key(model, plan, operand, scales, n0, dtype,
+                                 precision)
+        if _eager_because(model, operand, leaves) is None:
+            graph = SETUP_GRAPHS.lookup(key, lambda: _SetupGraph(
+                leaves, model, plan, operand, n0, dtype, precision))
+            if graph is not None:
+                return graph.run(leaves, n0)
         operand = operand.to(dtype)
         with span("fsai.forward", dev):
             out = model(plan, operand)
         with span("fsai.wrap", dev):
-            d_isqrt = 1.0 / torch.sqrt(scales.to(dtype))
-            if isinstance(plan, FSAIPlan):
-                return poly_preconditioner_dense(
-                    fsai_dense_factor(plan, out.c_vals),
-                    fsai_dense_from_l0(plan, operand), out.q_coeffs,
-                    d_isqrt=d_isqrt, n0=n0, precision=precision,
-                )
-            strips = range_strips(plan, out.c_vals)
-            s_eff = range_m_from_strips(plan, strips, d_isqrt=d_isqrt, n0=n0)
-            d_sqrt = torch.sqrt(scales.to(dtype))
-            a_raw = d_sqrt[..., :, None] * operand * d_sqrt[..., None, :]
-            return poly_preconditioner_from_gram(s_eff, a_raw, out.q_coeffs,
-                                                 precision=precision)
+            return _setup_wrap(plan, out, operand, scales, n0, dtype,
+                               precision)
+
+
+def _setup_wrap(plan, out: NeuralFSAIOut, operand, scales, n0, dtype,
+                precision):
+    """The setup's polynomial wrap of the forward's ``out`` (``operand``
+    already in ``dtype``): M on the raw system."""
+    d_isqrt = 1.0 / torch.sqrt(scales.to(dtype))
+    if isinstance(plan, FSAIPlan):
+        return poly_preconditioner_dense(
+            fsai_dense_factor(plan, out.c_vals),
+            fsai_dense_from_l0(plan, operand), out.q_coeffs,
+            d_isqrt=d_isqrt, n0=n0, precision=precision,
+        )
+    strips = range_strips(plan, out.c_vals)
+    s_eff = range_m_from_strips(plan, strips, d_isqrt=d_isqrt, n0=n0)
+    d_sqrt = torch.sqrt(scales.to(dtype))
+    a_raw = d_sqrt[..., :, None] * operand * d_sqrt[..., None, :]
+    return poly_preconditioner_from_gram(s_eff, a_raw, out.q_coeffs,
+                                         precision=precision)
+
+
+# -- the setup replayed from CUDA graphs --------------------------------------
+
+def _layout(t: torch.Tensor) -> tuple:
+    return (tuple(t.shape), t.stride(), t.dtype, t.device)
+
+
+def _setup_key(model, plan, operand, scales, n0, dtype, precision):
+    """(key, input tensors in key order: the plan's, the operand, the
+    scales) of a setup (see ``neural_fsai_dense_preconditioner``)."""
+    leaves, plan_sig = [], []
+    for f in fields(plan):
+        value = getattr(plan, f.name)
+        if torch.is_tensor(value):
+            leaves.append(value)
+            value = _layout(value)
+        plan_sig.append(value)
+    leaves += [operand, scales]
+    params = tuple((p.data_ptr(), tuple(p.shape), p.dtype)
+                   for p in model.parameters())
+    n0_shape = tuple(n0.shape) if torch.is_tensor(n0) else ()
+    return (model, params, type(plan), tuple(plan_sig), _layout(operand),
+            _layout(scales), n0_shape, dtype, precision), leaves
+
+
+def _eager_because(model, operand: torch.Tensor, leaves) -> str | None:
+    """Why a setup runs eagerly ("grad": under grad mode an input tensor
+    or a parameter needs a gradient; "device": the operand is not on a
+    CUDA device), or None where it is replayed from CUDA graphs."""
+    if torch.is_grad_enabled() and (
+            any(t.requires_grad for t in leaves)
+            or any(p.requires_grad for p in model.parameters())):
+        return "grad"
+    if operand.device.type != "cuda":
+        return "device"
+    return None
+
+
+class _SetupGraph:
+    """One setup signature's static inputs and its forward and wrap
+    graphs (see ``neural_fsai_dense_preconditioner``)."""
+
+    def __init__(self, leaves, model, plan, operand, n0, dtype,
+                 precision) -> None:
+        self.model, self.dtype, self.precision = model, dtype, precision
+        self.device = operand.device
+        self.leaves = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                           device=t.device) for t in leaves]
+        statics = iter(self.leaves)
+        self.plan = replace(plan, **{
+            f.name: next(statics) for f in fields(plan)
+            if torch.is_tensor(getattr(plan, f.name))})
+        self.operand, self.scales = statics
+        self.n0 = torch.empty(n0.shape if torch.is_tensor(n0) else (),
+                              dtype=torch.int64, device=self.device)
+        self._load(leaves, n0)
+        self.forward_graph, self.wrap_graph = self._warm_and_capture()
+        count("fsai.graph_captures")
+
+    def _forward(self) -> None:
+        self.cast = self.operand.to(self.dtype)
+        self.out = self.model(self.plan, self.cast)
+
+    def _wrap(self) -> None:
+        self.m = _setup_wrap(self.plan, self.out, self.cast, self.scales,
+                             self.n0, self.dtype, self.precision)
+
+    def _warm_and_capture(self):
+        """Run the setup eagerly on a side stream (its M is the capturing
+        call's), then capture the forward and the wrap there, the wrap in
+        the forward's pool (``_backend.capture_graphs``): (forward graph,
+        wrap graph)."""
+        graphs = _backend.capture_graphs(self.device, self._warm,
+                                         self._forward, self._wrap)
+        # made on the side stream, used on the caller's from here on
+        self.first.record_stream(torch.cuda.current_stream(self.device))
+        return graphs
+
+    def _warm(self) -> None:
+        self._forward()
+        self._wrap()
+        self.first = self.m
+        self.cast = self.out = self.m = None
+
+    def _load(self, leaves, n0) -> None:
+        for static, value in zip(self.leaves, leaves):
+            static.copy_(value)
+        if torch.is_tensor(n0):
+            self.n0.copy_(n0)
+        else:
+            self.n0.fill_(n0)
+
+    def run(self, leaves, n0) -> torch.Tensor:
+        """The setup of inputs ``leaves`` (``_setup_key``'s) and ``n0``:
+        a fresh M (on the capturing call, its warm-up's)."""
+        if self.first is not None:
+            m, self.first = self.first, None
+            return m
+        dev = self.device
+        self._load(leaves, n0)
+        with span("fsai.forward", dev):
+            self.forward_graph.replay()
+        with span("fsai.wrap", dev):
+            self.wrap_graph.replay()
+        count("fsai.graph_setups")
+        return self.m.clone()
+
+
+# key -> _SetupGraph, captured on the key's second call
+SETUP_GRAPHS = _backend.GraphCache(capture_on=2)
 
 
 class CasePlan(NamedTuple):

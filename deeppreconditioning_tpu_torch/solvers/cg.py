@@ -37,24 +37,24 @@ are keyed on the two callables, each operand tensor's shape, strides,
 dtype and device, which tensors and matrices are one object, a
 ``DIAMatrix``'s offsets, and ``rtol``, ``max_iter`` and ``check_every``
 (not ``ELLMatrix.n`` or ``DIAMatrix.n``, which the products do not
-read), in a cache of ``GRAPH_KEYS`` keys, the least recently used
-dropped first.  A key owns static copies of the operand tensors (and of
-their matrices, whose B2 plans an eager warm-up builds before the
-capture), the static state x, r, z, p, k, done, b.b and ``done | k >=
-max_iter``, and two graphs in one memory pool: the start and one chunk
-of ``check_every`` masked iterations.  A solve copies its operand
-tensors into the static ones, replays the start, then per chunk reads
-``done | k >= max_iter`` on the host and replays the chunk, and returns
-fresh copies of x, the count and the residual: the same kernels in the
-same order as the eager loop, so the same bits.  The first call of a key
-runs the start and one iteration eagerly on a side stream (its warm-up),
-then captures both graphs there.  The ``_backend`` launch counts a
-capture makes are taken back out and added on every replay, so they
-count the launches that ran; a key likewise keeps the operator products
-its start and its chunk enqueue, and each replay counts them.  The spans
-stay outside the graphs, and the graphed solve counts
-``pcg.graph_chunks`` (its chunks) and ``pcg.graph_captures`` (its keys
-captured) beside ``pcg.system_iterations``.
+read), in a ``_backend.GraphCache`` of ``_backend.GRAPH_KEYS`` keys, the
+least recently used dropped first.  A key owns static copies of the
+operand tensors (and of their matrices, whose B2 plans an eager warm-up
+builds before the capture), the static state x, r, z, p, k, done, b.b
+and ``done | k >= max_iter``, and two graphs in one memory pool: the
+start and one chunk of ``check_every`` masked iterations.  A solve
+copies its operand tensors into the static ones, replays the start, then
+per chunk reads ``done | k >= max_iter`` on the host and replays the
+chunk, and returns fresh copies of x, the count and the residual: the
+same kernels in the same order as the eager loop, so the same bits.  The
+first call of a key runs the start and one iteration eagerly on a side
+stream (its warm-up), then captures both graphs there.  The ``_backend``
+launch counts a capture makes are taken back out and added on every
+replay, so they count the launches that ran; a key likewise keeps the
+operator products its start and its chunk enqueue, and each replay
+counts them.  The spans stay outside the graphs, and the graphed solve
+counts ``pcg.graph_chunks`` (its chunks) and ``pcg.graph_captures`` (its
+keys captured) beside ``pcg.system_iterations``.
 
 ``batched_preconditioned_conjugate_gradient`` and
 ``batched_pcg_fixed_trips`` solve B independent systems at once, x and b
@@ -75,7 +75,6 @@ from __future__ import annotations
 
 import functools
 import time
-from collections import OrderedDict
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -84,8 +83,6 @@ from deeppreconditioning_tpu_torch import _backend
 from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
 from deeppreconditioning_tpu_torch.sparse.ell import ELLMatrix
 from deeppreconditioning_tpu_torch.utils.tracing import count, span
-
-GRAPH_KEYS = 8  # operand signatures whose graphs are kept
 
 
 class CGResult(NamedTuple):
@@ -185,9 +182,9 @@ def preconditioned_conjugate_gradient(
                                  max_iter, check_every)
         if key is not None and _eager_because(matvec, apply_m, b,
                                               leaves) is None:
-            return _chunk_graph(key, leaves, matvec, a_data, b, apply_m,
-                                m_data, rtol, max_iter,
-                                check_every).solve(leaves)
+            return _graphs.lookup(key, lambda: _ChunkGraph(
+                leaves, matvec, a_data, b, apply_m, m_data, rtol, max_iter,
+                check_every)).solve(leaves)
         products = operator_products(apply_m)
         s, bb = _pcg_start(matvec, a_data, b, apply_m, m_data, rtol)
         count("pcg.operator_products", products)
@@ -308,35 +305,21 @@ class _ChunkGraph:
         self.bb = scalar(dtype=b.dtype)
         self.stop = scalar(dtype=torch.bool)
         self._load(leaves)
-        (self.start_graph, self.start_counts, self.chunk_graph,
-         self.chunk_counts) = self._warm_and_capture()
+        self.start_graph, self.chunk_graph = self._warm_and_capture()
         count("pcg.graph_captures")
 
     def _warm_and_capture(self):
         """Run the start and one masked iteration eagerly on a side stream
         (B2 plans of the static matrices, library handles, lazily loaded
         kernels), then capture the start and the chunk there, the chunk in
-        the start's pool: (start graph, its counts, chunk graph, its
-        counts)."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._start()
-            _masked_iteration(self.matvec, self.a, self.apply_m, self.m,
-                              self.state, self.bb, self.rtol, self.max_iter)
-        side.synchronize()
-        start, start_counts = self._capture(self._start, side, None)
-        chunk, chunk_counts = self._capture(self._chunk, side, start.pool())
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        return start, start_counts, chunk, chunk_counts
+        the start's pool: (start graph, chunk graph)."""
+        return _backend.capture_graphs(self.device, self._warm, self._start,
+                                       self._chunk)
 
-    @staticmethod
-    def _capture(fn, stream, pool):
-        before = _backend.launch_state()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            fn()
-        return graph, _backend.launches_since(before)
+    def _warm(self) -> None:
+        self._start()
+        _masked_iteration(self.matvec, self.a, self.apply_m, self.m,
+                          self.state, self.bb, self.rtol, self.max_iter)
 
     def _store(self, s: _PCGState, bb=None) -> None:
         for static, value in zip(self.state, s):
@@ -366,7 +349,6 @@ class _ChunkGraph:
         dev = self.device
         self._load(leaves)
         self.start_graph.replay()
-        _backend.add_launches(self.start_counts)
         count("pcg.operator_products", self.products)
         while True:
             with span("pcg.read", dev):
@@ -375,7 +357,6 @@ class _ChunkGraph:
                 break
             with span("pcg.chunk", dev):
                 self.chunk_graph.replay()
-                _backend.add_launches(self.chunk_counts)
             count("pcg.graph_chunks")
             count("pcg.system_iterations", self.check_every)
             count("pcg.operator_products", self.check_every * self.products)
@@ -384,20 +365,7 @@ class _ChunkGraph:
                         residual=torch.dot(s.r, s.r) / self.bb)
 
 
-_graphs: OrderedDict = OrderedDict()  # key -> _ChunkGraph, oldest first
-
-
-def _chunk_graph(key, *args) -> _ChunkGraph:
-    """The cached ``_ChunkGraph`` of ``key``, captured the first time from
-    ``args`` (the solve's operand tensors and arguments)."""
-    graph = _graphs.get(key)
-    if graph is None:
-        graph = _graphs[key] = _ChunkGraph(*args)
-        while len(_graphs) > GRAPH_KEYS:
-            _graphs.popitem(last=False)
-    else:
-        _graphs.move_to_end(key)
-    return graph
+_graphs = _backend.GraphCache()  # key -> _ChunkGraph, captured at once
 
 
 def pcg_fixed_trips(

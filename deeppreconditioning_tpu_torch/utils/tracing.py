@@ -47,7 +47,13 @@ The spans and counters the port records, and what reads them:
 ``fsai.setup``                ``neural_fsai_dense_preconditioner``; children
                               ``fsai.forward`` (the model: columns, B1, MLP)
                               and ``fsai.wrap`` (factor or strips, Gram form,
-                              polynomial wrap)
+                              polynomial wrap), eager or each one CUDA graph
+                              replay
+``fsai.graph_setups``         counter: the setups replayed from CUDA graphs
+                              (each also an ``fsai.setup`` span)
+``fsai.graph_captures``       counter: the setup signatures whose forward and
+                              wrap graphs were captured (on a signature's
+                              second call)
 ``structured.plan``           ``build_structured_plan`` (host): the stencil
                               read from the operator's offsets and the
                               cached pattern

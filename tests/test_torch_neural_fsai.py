@@ -22,6 +22,7 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
     neural_fsai_from_checkpoint,
     params_from_jax,
 )
+from deeppreconditioning_tpu_torch.models import neural_fsai
 from deeppreconditioning_tpu_torch.ops import fsai
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
 from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
@@ -212,3 +213,135 @@ def test_generic_dense_preconditioner_matches_jax():
         )
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-9,
                                atol=1e-9 * np.abs(want).max())
+
+
+# -- n0 as a device value, the setup graph's key and engagement rule ----------
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the CPU's threaded float32 products need not
+    give the same bits from one call to the next."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _f32_setup_input(seed, kind, static_lo=False):
+    """(plan, operand, scales, n0) of a sludge case at N_PAD in float32, on
+    the range plan (dense A~) or the generic plan (tril values)."""
+    case = generate_sludge_case(np.random.default_rng(seed), mesh_cells=1)
+    m = case.matrix
+    h = _prepare_sample(m.row, m.col, m.data, case.solution, case.rhs,
+                        N_PAD)
+    pr, pc = fsai.tril_power_pattern(h.rows, h.cols, N_PAD, power=4)
+    if kind == "generic":
+        plan = fsai.build_fsai_plan(h.rows, h.cols, pr, pc, N_PAD, width=24)
+        operand = h.vals
+    else:
+        plan = fsai.build_range_fsai_plan(pr, pc, N_PAD, width=24,
+                                          range_h=128, static_lo=static_lo)
+        operand = np.zeros((N_PAD, N_PAD))
+        operand[h.rows, h.cols] = h.vals
+        operand = operand + np.tril(operand, -1).T
+    return (plan, torch.tensor(operand, dtype=torch.float32),
+            torch.tensor(h.scale, dtype=torch.float32), h.original_size)
+
+
+@pytest.mark.parametrize("kind", ["range", "generic"])
+@torch.no_grad()
+def test_n0_tensor_gives_the_int_bits(kind, one_thread):
+    """A 0-dim int64 ``n0`` (the setup graph's static value) masks as the
+    int does: the same M, bit for bit."""
+    model = neural_fsai_from_checkpoint(load_checkpoint(BEST))
+    for seed in (0, 1):
+        plan, operand, scales, n0 = _f32_setup_input(seed, kind)
+        plan = plan.to("cpu")
+        want = neural_fsai_dense_preconditioner(model, plan, operand,
+                                                scales, n0)
+        got = neural_fsai_dense_preconditioner(
+            model, plan, operand, scales, torch.tensor(n0))
+        assert torch.equal(got, want)
+        assert n0 < N_PAD and not want[n0:].any()
+
+
+@torch.no_grad()
+def test_group_n0_tensor_gives_the_per_case_bits(one_thread):
+    """A group of 3 with one int64 ``n0`` a case gives each case's M of
+    the per-case setup with an int ``n0``, bit for bit."""
+    model = neural_fsai_from_checkpoint(load_checkpoint(BEST))
+    inputs = [_f32_setup_input(seed, "range", static_lo=True)
+              for seed in (0, 1, 2)]
+    n0s = [n0 for *_, n0 in inputs]
+    assert len(set(n0s)) == 3
+    got = neural_fsai_dense_preconditioner(
+        model, fsai.stack_plans([p for p, *_ in inputs]).to("cpu"),
+        torch.stack([o for _, o, _, _ in inputs]),
+        torch.stack([s for _, _, s, _ in inputs]), torch.tensor(n0s))
+    for i, (plan, operand, scales, n0) in enumerate(inputs):
+        want = neural_fsai_dense_preconditioner(model, plan.to("cpu"),
+                                                operand, scales, n0)
+        assert torch.equal(got[i], want)
+
+
+def _cell_case(seed, dtype=torch.float32, **plan_args):
+    """(plan, operand, scales, n0) of a case of the per-case cell's shape:
+    a mesh_cells-2 sludge case in n_pad 1024, power 4, w 24, H 128."""
+    n_pad = 1024
+    case = generate_sludge_case(np.random.default_rng(seed), mesh_cells=2)
+    m = case.matrix
+    h = _prepare_sample(m.row, m.col, m.data, case.solution, case.rhs,
+                        n_pad)
+    pr, pc = fsai.tril_power_pattern(h.rows, h.cols, n_pad, power=4)
+    plan = fsai.build_range_fsai_plan(
+        pr, pc, n_pad, width=24, **{"range_h": 128, **plan_args})
+    return (plan.to("cpu"), torch.zeros((n_pad, n_pad), dtype=dtype),
+            torch.ones(n_pad, dtype=dtype), h.original_size)
+
+
+def test_setup_key_ignores_n0_and_plan_values():
+    """Two cases of the cell's shape, other n0 and other plan values,
+    share a key; another H, static window starts, precision or dtype
+    give another."""
+    model = neural_fsai_from_checkpoint(load_checkpoint(BEST))
+
+    def key(case, dtype=torch.float32, precision=None):
+        return neural_fsai._setup_key(model, *case, dtype, precision)[0]
+
+    first, second = _cell_case(0), _cell_case(1)
+    assert first[3] != second[3]
+    assert not torch.equal(first[0].local, second[0].local)
+    base = key(first)
+    assert key(second) == base
+    hash(base)
+    others = [
+        key(_cell_case(0, range_h=256)),
+        key(_cell_case(0, static_lo=True)),
+        key(first, precision="bf16"),
+        key(first, dtype=torch.float64),
+        key(_cell_case(0, dtype=torch.float64), dtype=torch.float64),
+        key(first[:3] + (torch.tensor([first[3]]),)),
+    ]
+    assert len({base, *others}) == len(others) + 1
+    _, leaves = neural_fsai._setup_key(model, *first, torch.float32, None)
+    assert len(leaves) == 7  # lo, local, pos, diag_pad, out_rows, A~, D
+
+
+@pytest.mark.parametrize("name,want", [
+    ("cpu operand", "device"),
+    ("operand needs a gradient", "grad"),
+    ("parameter needs a gradient", "grad"),
+    ("parameter needs a gradient, grad mode off", "device"),
+])
+def test_setup_eager_because(name, want):
+    model = NeuralFSAI(width=24, hidden=64, poly_degree=2)
+    plan, operand, scales, n0 = _cell_case(0)
+    if name == "operand needs a gradient":
+        operand.requires_grad_()
+    if not name.startswith("parameter"):
+        model.requires_grad_(False)
+    _, leaves = neural_fsai._setup_key(model, plan, operand, scales, n0,
+                                       torch.float32, None)
+    with torch.set_grad_enabled(not name.endswith("grad mode off")):
+        assert neural_fsai._eager_because(model, operand, leaves) == want
