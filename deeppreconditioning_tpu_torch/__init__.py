@@ -20,7 +20,7 @@ Layer map (entry point down to the card):
     sparse/    ELL, DIA, BSR and batched COO matrices
     data/      FVM sludge-pattern generator, host and training datasets,
                DIA Poisson
-    utils/     timing and bounds; the metrics logger
+    utils/     timing and bounds; the metrics logger; CUDA-graph replay
     csrc/      hand-written CUDA kernels for sm_90a, built on first use
     _backend   device selection, kernel build/load, launch counters
 """

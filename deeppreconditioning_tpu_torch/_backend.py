@@ -16,10 +16,9 @@ calls made on a CUDA tensor (``plain_cuda_counts``): a main path on the
 card must read 0 there, since on the card only a comparison with the
 kernel runs the plain version.  A CUDA graph's capture launches nothing,
 so the counts its wrappers made then are taken back out
-(``launch_state`` / ``launches_since``; ``capture_graphs`` warms and
-captures so) and added again on every replay (``add_launches``;
-``CapturedGraph.replay``): the counts stay the launches that ran.  A
-caller keeps its captured graphs by signature in a ``GraphCache``.
+(``launch_state`` / ``launches_since``) and added again on every replay
+(``add_launches``), both by ``utils/graphs.py``: the counts stay the
+launches that ran.
 
 The host runtime (``csrc/host_runtime.cpp``: IC(0), ICT, trisolve levels,
 conv plans, FVM assembly) is C++ for the host, built with ``g++`` into
@@ -38,7 +37,6 @@ import os
 import shutil
 import subprocess
 import time
-from collections import OrderedDict
 from pathlib import Path
 
 import torch
@@ -151,86 +149,6 @@ def add_launches(delta: tuple) -> None:
     for counts, added in zip(_replayed_counts(), delta):
         for key, n in added.items():
             counts[key] = counts.get(key, 0) + n
-
-
-GRAPH_KEYS = 8  # signatures a ``GraphCache`` keeps, captured or waiting
-
-
-class CapturedGraph:
-    """A captured CUDA graph and the counts its capture took back out
-    (``launches_since``): a replay runs the graph and adds them."""
-
-    def __init__(self, graph, counts: tuple) -> None:
-        self.graph, self.counts = graph, counts
-
-    def replay(self) -> None:
-        self.graph.replay()
-        add_launches(self.counts)
-
-
-def capture_graphs(device, warm, *fns) -> list[CapturedGraph]:
-    """Run ``warm`` eagerly on a side stream of ``device`` (the kernel
-    library, library handles, lazily loaded kernels), then capture each
-    of ``fns`` there into a CUDA graph, all in the first graph's memory
-    pool, in order.  ``capture_begin`` / ``capture_end`` and not
-    ``torch.cuda.graph``, which before each capture synchronizes the
-    device and empties the allocator's cache (and in some versions
-    collects garbage): that costs more than the capture itself, and the
-    side stream is idle already."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    captured = []
-    with torch.cuda.stream(side):
-        warm()
-        side.synchronize()
-        for fn in fns:
-            before = launch_state()
-            graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(
-                pool=captured[0].graph.pool() if captured else None)
-            try:
-                fn()
-            finally:
-                graph.capture_end()
-            captured.append(CapturedGraph(graph, launches_since(before)))
-    torch.cuda.current_stream(device).wait_stream(side)
-    return captured
-
-
-def _drop_oldest(entries: OrderedDict) -> None:
-    while len(entries) > GRAPH_KEYS:
-        entries.popitem(last=False)
-
-
-class GraphCache(OrderedDict):
-    """A caller's captured graphs by signature, the least recently used
-    first and dropped first beyond ``GRAPH_KEYS``.  A signature is
-    captured on its ``capture_on``-th call; the calls before are only
-    counted (``waiting``, bounded likewise)."""
-
-    def __init__(self, capture_on: int = 1) -> None:
-        super().__init__()
-        self.capture_on = capture_on
-        self.waiting: OrderedDict = OrderedDict()  # signature -> its calls
-
-    def lookup(self, key, capture):
-        """The entry of ``key``: the cached one, or ``capture()``'s on the
-        key's ``capture_on``-th call; None on an earlier call."""
-        if key in self:
-            self.move_to_end(key)
-            return self[key]
-        calls = self.waiting.pop(key, 0) + 1
-        if calls < self.capture_on:
-            self.waiting[key] = calls
-            _drop_oldest(self.waiting)
-            return None
-        entry = self[key] = capture()
-        _drop_oldest(self)
-        return entry
-
-    def clear(self) -> None:
-        super().clear()
-        self.waiting.clear()
 
 
 def dtype_launch_counts() -> dict[tuple[str, str], int]:

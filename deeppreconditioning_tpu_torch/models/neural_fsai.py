@@ -43,7 +43,6 @@ refuses an operand that needs one: it would drop the gradient.)
 from __future__ import annotations
 
 import math
-from dataclasses import fields, replace
 from typing import List, NamedTuple
 
 import numpy as np
@@ -70,6 +69,7 @@ from deeppreconditioning_tpu_torch.ops.fsai import (
     tril_power_pattern,
     tril_power_pattern_capped,
 )
+from deeppreconditioning_tpu_torch.utils import graphs
 from deeppreconditioning_tpu_torch.utils.tracing import count, span
 
 LAYERS = ("alpha", "beta", "dense0", "dense1")  # Flax's (sorted) names
@@ -239,36 +239,24 @@ def neural_fsai_dense_preconditioner(
     ``fsai.wrap`` (``utils/tracing.py``).
 
     On a CUDA device a setup whose key comes back is replayed from two
-    CUDA graphs, the forward's and the wrap's: when the operand is on a
-    CUDA device and grad mode is off or neither an operand tensor nor a
-    parameter needs a gradient (``_eager_because``); every other call (the
-    CPU, a caller under grad) runs eagerly.  The key is the model object,
-    its parameters' addresses, shapes and dtypes, the plan's class, each
-    plan tensor's shape, strides, dtype and device, the plan's ``h`` and
-    ``lo_static``, the operand's and the scales' layout, whether ``n0`` is
-    one value or one per case (not its value), ``dtype`` and
-    ``precision``.  A key's first call runs eagerly and is only counted
-    (a caller whose shapes never repeat pays nothing more); its second
-    runs the setup eagerly on a side stream, returns that M and captures
-    both graphs there; every later call is a replay.  The keys live in
-    ``SETUP_GRAPHS``, a ``_backend.GraphCache`` of ``_backend.GRAPH_KEYS``
-    keys, the least recently used dropped first.  A key owns static copies
-    of the plan tensors, the operand, the scales and ``n0`` (an int64
-    device tensor), and both graphs in one memory pool; the parameters
-    are read where they are.  A replay copies the inputs in, replays the
-    forward inside ``fsai.forward`` and the wrap inside ``fsai.wrap``, and
-    returns a fresh copy of M: the same kernels in the same order as the
-    eager setup, so the same bits.  The ``_backend`` launch counts of a
-    capture are taken back out and added on every replay, so every setup
-    counts its launches once.  Each replayed setup counts
-    ``fsai.graph_setups``, each key captured ``fsai.graph_captures``."""
+    CUDA graphs (``utils/graphs.py``), the forward's and the wrap's, where
+    the seam's eager rule lets it with the model's parameters.  The key
+    adds to the walk of ``(plan, operand, scales)`` the model object, its
+    parameters' addresses, shapes and dtypes, whether ``n0`` is one value
+    or one per case (not its value), ``dtype`` and ``precision``, and is
+    captured on its second call (``SETUP_GRAPHS``).  Its entry adds ``n0``
+    as an int64 device tensor.  The capturing call returns the M of its
+    warm-up; a replay runs the forward inside ``fsai.forward`` and the wrap
+    inside ``fsai.wrap`` and returns a fresh copy of M.  Each replayed
+    setup counts ``fsai.graph_setups``, each key captured
+    ``fsai.graph_captures``."""
     dev = operand.device
     with span("fsai.setup", dev):
         key, leaves = _setup_key(model, plan, operand, scales, n0, dtype,
                                  precision)
-        if _eager_because(model, operand, leaves) is None:
+        if graphs.eager_because(leaves, model.parameters()) is None:
             graph = SETUP_GRAPHS.lookup(key, lambda: _SetupGraph(
-                leaves, model, plan, operand, n0, dtype, precision))
+                leaves, model, plan, operand, scales, n0, dtype, precision))
             if graph is not None:
                 return graph.run(leaves, n0)
         operand = operand.to(dtype)
@@ -300,60 +288,30 @@ def _setup_wrap(plan, out: NeuralFSAIOut, operand, scales, n0, dtype,
 
 # -- the setup replayed from CUDA graphs --------------------------------------
 
-def _layout(t: torch.Tensor) -> tuple:
-    return (tuple(t.shape), t.stride(), t.dtype, t.device)
-
-
 def _setup_key(model, plan, operand, scales, n0, dtype, precision):
-    """(key, input tensors in key order: the plan's, the operand, the
-    scales) of a setup (see ``neural_fsai_dense_preconditioner``)."""
-    leaves, plan_sig = [], []
-    for f in fields(plan):
-        value = getattr(plan, f.name)
-        if torch.is_tensor(value):
-            leaves.append(value)
-            value = _layout(value)
-        plan_sig.append(value)
-    leaves += [operand, scales]
+    """(key, input tensors in walk order) of a setup (see
+    ``neural_fsai_dense_preconditioner``)."""
+    operands, leaves = graphs.walk((plan, operand, scales))
     params = tuple((p.data_ptr(), tuple(p.shape), p.dtype)
                    for p in model.parameters())
     n0_shape = tuple(n0.shape) if torch.is_tensor(n0) else ()
-    return (model, params, type(plan), tuple(plan_sig), _layout(operand),
-            _layout(scales), n0_shape, dtype, precision), leaves
+    return (model, params, operands, n0_shape, dtype, precision), leaves
 
 
-def _eager_because(model, operand: torch.Tensor, leaves) -> str | None:
-    """Why a setup runs eagerly ("grad": under grad mode an input tensor
-    or a parameter needs a gradient; "device": the operand is not on a
-    CUDA device), or None where it is replayed from CUDA graphs."""
-    if torch.is_grad_enabled() and (
-            any(t.requires_grad for t in leaves)
-            or any(p.requires_grad for p in model.parameters())):
-        return "grad"
-    if operand.device.type != "cuda":
-        return "device"
-    return None
+class _SetupGraph(graphs.GraphEntry):
+    """One key's static ``n0`` and its forward and wrap graphs (see
+    ``neural_fsai_dense_preconditioner``)."""
 
-
-class _SetupGraph:
-    """One setup signature's static inputs and its forward and wrap
-    graphs (see ``neural_fsai_dense_preconditioner``)."""
-
-    def __init__(self, leaves, model, plan, operand, n0, dtype,
+    def __init__(self, leaves, model, plan, operand, scales, n0, dtype,
                  precision) -> None:
+        super().__init__((plan, operand, scales), operand.device)
+        self.plan, self.operand, self.scales = self.operands
         self.model, self.dtype, self.precision = model, dtype, precision
-        self.device = operand.device
-        self.leaves = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                           device=t.device) for t in leaves]
-        statics = iter(self.leaves)
-        self.plan = replace(plan, **{
-            f.name: next(statics) for f in fields(plan)
-            if torch.is_tensor(getattr(plan, f.name))})
-        self.operand, self.scales = statics
         self.n0 = torch.empty(n0.shape if torch.is_tensor(n0) else (),
                               dtype=torch.int64, device=self.device)
-        self._load(leaves, n0)
-        self.forward_graph, self.wrap_graph = self._warm_and_capture()
+        self.load(leaves, n0)
+        self.first, self.graphs = graphs.capture_graphs(
+            self.device, self._warm, self._forward, self._wrap)
         count("fsai.graph_captures")
 
     def _forward(self) -> None:
@@ -364,26 +322,15 @@ class _SetupGraph:
         self.m = _setup_wrap(self.plan, self.out, self.cast, self.scales,
                              self.n0, self.dtype, self.precision)
 
-    def _warm_and_capture(self):
-        """Run the setup eagerly on a side stream (its M is the capturing
-        call's), then capture the forward and the wrap there, the wrap in
-        the forward's pool (``_backend.capture_graphs``): (forward graph,
-        wrap graph)."""
-        graphs = _backend.capture_graphs(self.device, self._warm,
-                                         self._forward, self._wrap)
-        # made on the side stream, used on the caller's from here on
-        self.first.record_stream(torch.cuda.current_stream(self.device))
-        return graphs
-
-    def _warm(self) -> None:
+    def _warm(self) -> torch.Tensor:
+        """The setup run eagerly: its M, the capturing call's."""
         self._forward()
         self._wrap()
-        self.first = self.m
-        self.cast = self.out = self.m = None
+        m, self.cast, self.out, self.m = self.m, None, None, None
+        return m
 
-    def _load(self, leaves, n0) -> None:
-        for static, value in zip(self.leaves, leaves):
-            static.copy_(value)
+    def load(self, leaves, n0) -> None:
+        super().load(leaves)
         if torch.is_tensor(n0):
             self.n0.copy_(n0)
         else:
@@ -395,18 +342,19 @@ class _SetupGraph:
         if self.first is not None:
             m, self.first = self.first, None
             return m
+        forward, wrap = self.graphs
         dev = self.device
-        self._load(leaves, n0)
+        self.load(leaves, n0)
         with span("fsai.forward", dev):
-            self.forward_graph.replay()
+            forward.replay()
         with span("fsai.wrap", dev):
-            self.wrap_graph.replay()
+            wrap.replay()
         count("fsai.graph_setups")
         return self.m.clone()
 
 
 # key -> _SetupGraph, captured on the key's second call
-SETUP_GRAPHS = _backend.GraphCache(capture_on=2)
+SETUP_GRAPHS = graphs.GraphCache(capture_on=2)
 
 
 class CasePlan(NamedTuple):

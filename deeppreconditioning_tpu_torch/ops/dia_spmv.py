@@ -19,7 +19,7 @@ the ``DIAMatrix``, keyed on the values' address, shape, dtype and device,
 so replaced values build a new plan.  A call then checks only x, allocates
 y, reads the raw current stream (``torch._C._cuda_getCurrentRawStream``,
 which follows a CUDA graph's capture stream) and makes one ctypes call.
-So ``dia_matvec`` is declared ``capture_safe`` (``solvers/cg.py``): the
+So ``dia_matvec`` is declared ``capture_safe`` (``utils/graphs.py``): the
 single-system PCG replays its launches from a CUDA graph.
 
 Where x needs a gradient, the product goes through ``DIAMatvec``, an
@@ -41,8 +41,8 @@ from dataclasses import dataclass
 import torch
 
 from deeppreconditioning_tpu_torch import _backend
-from deeppreconditioning_tpu_torch.solvers.cg import capture_safe
 from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
+from deeppreconditioning_tpu_torch.utils.graphs import capture_safe
 
 MAX_DIAGS = 32  # the window table travels by value in the kernel's parameters
 MAX_ROWS = 1 << 30  # int row and window indices stay in range

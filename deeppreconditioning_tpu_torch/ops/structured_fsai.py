@@ -43,8 +43,8 @@ import torch.nn.functional as F
 
 from deeppreconditioning_tpu_torch.ops.dia_spmv import dia_matvec
 from deeppreconditioning_tpu_torch.ops.gauss_jordan import masked_gauss_jordan
-from deeppreconditioning_tpu_torch.solvers.cg import capture_safe
 from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
+from deeppreconditioning_tpu_torch.utils.graphs import capture_safe
 from deeppreconditioning_tpu_torch.utils.tracing import span
 
 CHUNK = 1 << 18  # columns per B1 launch: bounds the (T, w, w) systems

@@ -23,38 +23,21 @@ at all, so its counts equal the chunked solver's whenever ``trips``
 covers the solve.
 
 On a CUDA device ``preconditioned_conjugate_gradient`` replays the chunk
-from a CUDA graph where it can, and otherwise runs the same loop
-eagerly.  The graph engages when ``b`` is on a CUDA device, grad mode is
-off or no operand tensor needs a gradient, and both ``matvec`` and
-``apply_m`` are declared capture-safe (``capture_safe``: ``ell_matvec``,
-``dense_matvec``, ``identity_apply``, ``ops.dia_spmv.dia_matvec`` and
-the apply ``ops.structured_fsai.make_structured_poly_apply_dia``
-returns): they launch on the current stream, read no device value on the
-host, and a replay of what they launched recomputes from the operands'
-buffers.  Every other caller (the IC and ILU level waves, AMG, GMG, a
-caller's own closure, every CPU call) runs the eager loop.  The graphs
-are keyed on the two callables, each operand tensor's shape, strides,
-dtype and device, which tensors and matrices are one object, a
-``DIAMatrix``'s offsets, and ``rtol``, ``max_iter`` and ``check_every``
-(not ``ELLMatrix.n`` or ``DIAMatrix.n``, which the products do not
-read), in a ``_backend.GraphCache`` of ``_backend.GRAPH_KEYS`` keys, the
-least recently used dropped first.  A key owns static copies of the
-operand tensors (and of their matrices, whose B2 plans an eager warm-up
-builds before the capture), the static state x, r, z, p, k, done, b.b
-and ``done | k >= max_iter``, and two graphs in one memory pool: the
-start and one chunk of ``check_every`` masked iterations.  A solve
-copies its operand tensors into the static ones, replays the start, then
-per chunk reads ``done | k >= max_iter`` on the host and replays the
-chunk, and returns fresh copies of x, the count and the residual: the
-same kernels in the same order as the eager loop, so the same bits.  The
-first call of a key runs the start and one iteration eagerly on a side
-stream (its warm-up), then captures both graphs there.  The ``_backend``
-launch counts a capture makes are taken back out and added on every
-replay, so they count the launches that ran; a key likewise keeps the
-operator products its start and its chunk enqueue, and each replay
-counts them.  The spans stay outside the graphs, and the graphed solve
-counts ``pcg.graph_chunks`` (its chunks) and ``pcg.graph_captures`` (its
-keys captured) beside ``pcg.system_iterations``.
+from CUDA graphs (``utils/graphs.py``) where ``matvec`` and ``apply_m``
+are both declared ``capture_safe`` (``ell_matvec``, ``dense_matvec``,
+``identity_apply``, ``ops.dia_spmv.dia_matvec``, the apply of
+``ops.structured_fsai.make_structured_poly_apply_dia``) and the seam's
+eager rule lets it; every other call (the IC and ILU level waves, AMG,
+GMG, a caller's own closure, the CPU) runs the eager loop.  The key adds
+the two callables, ``rtol``, ``max_iter`` and ``check_every`` to the walk
+of ``(a_data, b, m_data)`` and is captured on its first call.  The stages
+are the start and one chunk of ``check_every`` masked iterations over a
+static x, r, z, p, k, done, b.b and ``done | k >= max_iter``: a solve
+replays the start, then per chunk reads the last on the host and replays
+the chunk, and returns fresh copies of x, the count and the residual.
+The spans stay outside the graphs; each replay counts the operator
+products its capture enqueued, and the graphed solve counts
+``pcg.graph_chunks`` and ``pcg.graph_captures``.
 
 ``batched_preconditioned_conjugate_gradient`` and
 ``batched_pcg_fixed_trips`` solve B independent systems at once, x and b
@@ -79,9 +62,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from deeppreconditioning_tpu_torch import _backend
-from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
-from deeppreconditioning_tpu_torch.sparse.ell import ELLMatrix
+from deeppreconditioning_tpu_torch.utils import graphs
+from deeppreconditioning_tpu_torch.utils.graphs import capture_safe
 from deeppreconditioning_tpu_torch.utils.tracing import count, span
 
 
@@ -89,15 +71,6 @@ class CGResult(NamedTuple):
     x: torch.Tensor
     iterations: torch.Tensor  # int32 scalar
     residual: torch.Tensor  # final (r.r)/(b.b)
-
-
-def capture_safe(fn: Callable) -> Callable:
-    """Declare ``fn`` (a ``matvec`` or ``apply_m``) safe to capture in the
-    single-system solver's CUDA graph: it launches on the current stream,
-    reads no device value on the host, and what it launched, replayed,
-    recomputes from its operands' buffers.  Returns ``fn``."""
-    fn.capture_safe = True
-    return fn
 
 
 def operator_products(apply_m) -> int:
@@ -180,7 +153,7 @@ def preconditioned_conjugate_gradient(
     with span("pcg.solve", dev):
         key, leaves = _graph_key(matvec, a_data, b, apply_m, m_data, rtol,
                                  max_iter, check_every)
-        if key is not None and _eager_because(matvec, apply_m, b,
+        if key is not None and _eager_because(matvec, apply_m,
                                               leaves) is None:
             return _graphs.lookup(key, lambda: _ChunkGraph(
                 leaves, matvec, a_data, b, apply_m, m_data, rtol, max_iter,
@@ -203,118 +176,48 @@ def preconditioned_conjugate_gradient(
                         residual=torch.dot(s.r, s.r) / bb)
 
 
-def _eager_because(matvec, apply_m, b: torch.Tensor, leaves) -> str | None:
+def _eager_because(matvec, apply_m, leaves) -> str | None:
     """Why a solve takes the eager loop ("undeclared": a callable not
-    declared ``capture_safe``; "grad": an operand tensor needs a gradient
-    under grad mode; "device": ``b`` is not on a CUDA device), or None
-    where its chunk is replayed from a CUDA graph."""
+    declared ``capture_safe``; else ``graphs.eager_because`` of its
+    operand tensors), or None where its chunk is replayed."""
     if not (getattr(matvec, "capture_safe", False)
             and getattr(apply_m, "capture_safe", False)):
         return "undeclared"
-    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-        return "grad"
-    if b.device.type != "cuda":
-        return "device"
-    return None
-
-
-def _signature(tree, leaves: list, memo: dict):
-    """The part of a graph's key that the operand ``tree`` (a tensor, a
-    tuple, an ``ELLMatrix``, a ``DIAMatrix`` or None) gives: each
-    tensor's shape, strides, dtype and device, a DIA matrix's offsets, and
-    which tensors and matrices are one object (``memo``: id -> index).
-    Appends each tensor, the first time it is met, to ``leaves``.  Raises
-    TypeError on anything else."""
-    if isinstance(tree, (torch.Tensor, ELLMatrix, DIAMatrix)):
-        if id(tree) in memo:
-            return ("same", memo[id(tree)])
-        memo[id(tree)] = len(memo)
-        if isinstance(tree, torch.Tensor):
-            leaves.append(tree)
-            return ("tensor", tree.shape, tree.stride(), tree.dtype,
-                    tree.device)
-        if isinstance(tree, ELLMatrix):
-            return ("ell", _signature(tree.cols, leaves, memo),
-                    _signature(tree.vals, leaves, memo))
-        return ("dia", tuple(tree.offsets),
-                _signature(tree.vals, leaves, memo))
-    if isinstance(tree, tuple):
-        return ("tuple", *(_signature(t, leaves, memo) for t in tree))
-    if tree is None:
-        return None
-    raise TypeError(f"no graph signature for {type(tree).__name__}")
+    return graphs.eager_because(leaves)
 
 
 def _graph_key(matvec, a_data, b, apply_m, m_data, rtol, max_iter,
                check_every):
-    """(key, operand tensors in signature order) of a solve, or (None,
-    None) where an operand holds a type the graph does not take."""
-    leaves = []
+    """(key, operand tensors in walk order) of a solve, or (None, None)
+    where an operand holds a type the walk does not take."""
     try:
-        operands = _signature((a_data, b, m_data), leaves, {})
+        operands, leaves = graphs.walk((a_data, b, m_data))
     except TypeError:
         return None, None
     return (matvec, apply_m, operands, rtol, max_iter, check_every), leaves
 
 
-def _static_copy(tree, memo: dict, leaves: list):
-    """``tree`` rebuilt over new, empty tensors of each tensor's shape,
-    strides, dtype and device (appended to ``leaves`` in ``_signature``'s
-    order), with the same sharing; a matrix is rebuilt with its offsets
-    and ``n``, without a launch plan."""
-    if isinstance(tree, (torch.Tensor, ELLMatrix, DIAMatrix)):
-        if id(tree) in memo:
-            return memo[id(tree)]
-        if isinstance(tree, torch.Tensor):
-            out = torch.empty_strided(tree.shape, tree.stride(),
-                                      dtype=tree.dtype, device=tree.device)
-            leaves.append(out)
-        elif isinstance(tree, ELLMatrix):
-            out = ELLMatrix(cols=_static_copy(tree.cols, memo, leaves),
-                            vals=_static_copy(tree.vals, memo, leaves),
-                            n=tree.n)
-        else:
-            out = DIAMatrix(vals=_static_copy(tree.vals, memo, leaves),
-                            offsets=tree.offsets, n=tree.n)
-        memo[id(tree)] = out
-        return out
-    if isinstance(tree, tuple):
-        return tuple(_static_copy(t, memo, leaves) for t in tree)
-    return tree
-
-
-class _ChunkGraph:
-    """One operand signature's graphed solve: static operands and state,
-    the start and chunk graphs, and the ``_backend`` counts each replay
-    adds (see the module docstring)."""
+class _ChunkGraph(graphs.GraphEntry):
+    """One key's graphed solve: its static state, and the start and chunk
+    graphs (see the module docstring)."""
 
     def __init__(self, leaves, matvec, a_data, b, apply_m, m_data, rtol,
                  max_iter, check_every) -> None:
+        super().__init__((a_data, b, m_data), b.device)
+        self.a, self.b, self.m = self.operands
         self.matvec, self.apply_m = matvec, apply_m
         self.products = operator_products(apply_m)
-        self.rtol, self.max_iter = rtol, max_iter
-        self.check_every, self.device = check_every, b.device
-        self.leaves, memo = [], {}
-        self.a = _static_copy(a_data, memo, self.leaves)
-        self.b = _static_copy(b, memo, self.leaves)
-        self.m = _static_copy(m_data, memo, self.leaves)
+        self.rtol, self.max_iter, self.check_every = rtol, max_iter, check_every
         scalar = functools.partial(torch.empty, (), device=b.device)
         self.state = _PCGState(
             *(torch.empty_like(b) for _ in range(4)),
             scalar(dtype=torch.int32), scalar(dtype=torch.bool))
         self.bb = scalar(dtype=b.dtype)
         self.stop = scalar(dtype=torch.bool)
-        self._load(leaves)
-        self.start_graph, self.chunk_graph = self._warm_and_capture()
+        self.load(leaves)
+        _, self.graphs = graphs.capture_graphs(self.device, self._warm,
+                                               self._start, self._chunk)
         count("pcg.graph_captures")
-
-    def _warm_and_capture(self):
-        """Run the start and one masked iteration eagerly on a side stream
-        (B2 plans of the static matrices, library handles, lazily loaded
-        kernels), then capture the start and the chunk there, the chunk in
-        the start's pool: (start graph, chunk graph)."""
-        return _backend.capture_graphs(self.device, self._warm, self._start,
-                                       self._chunk)
 
     def _warm(self) -> None:
         self._start()
@@ -340,15 +243,12 @@ class _ChunkGraph:
                                   s, self.bb, self.rtol, self.max_iter)
         self._store(s)
 
-    def _load(self, leaves) -> None:
-        for static, value in zip(self.leaves, leaves):
-            static.copy_(value)
-
     def solve(self, leaves) -> CGResult:
         """The chunked solve of operands ``leaves`` (``_graph_key``'s)."""
         dev = self.device
-        self._load(leaves)
-        self.start_graph.replay()
+        start, chunk = self.graphs
+        self.load(leaves)
+        start.replay()
         count("pcg.operator_products", self.products)
         while True:
             with span("pcg.read", dev):
@@ -356,7 +256,7 @@ class _ChunkGraph:
             if not running:
                 break
             with span("pcg.chunk", dev):
-                self.chunk_graph.replay()
+                chunk.replay()
             count("pcg.graph_chunks")
             count("pcg.system_iterations", self.check_every)
             count("pcg.operator_products", self.check_every * self.products)
@@ -365,7 +265,7 @@ class _ChunkGraph:
                         residual=torch.dot(s.r, s.r) / self.bb)
 
 
-_graphs = _backend.GraphCache()  # key -> _ChunkGraph, captured at once
+_graphs = graphs.GraphCache()  # key -> _ChunkGraph, captured at once
 
 
 def pcg_fixed_trips(

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from deeppreconditioning_tpu_torch import _backend
+from deeppreconditioning_tpu_torch.utils.graphs import UNKEYED
 
 
 def pad_rows(n: int, mult: int = 1024) -> int:
@@ -38,7 +39,8 @@ class DIAMatrix:
         vals[..., d, i] multiplies x[..., i + offsets[d]] and is zero
         where i + offset leaves the matrix.
     offsets: static tuple of diagonal offsets (may be negative).
-    n: true dimension (rows n..n_pad-1 are zero).
+    n: true dimension (rows n..n_pad-1 are zero); no product reads it, so
+        a CUDA graph's key leaves it out (``utils/graphs.py``).
     launch_plan: kernel B2's launch plan (``ops.dia_spmv.launch_plan``),
         built on the first CUDA product and kept while ``vals`` keeps its
         address, shape, dtype and device.
@@ -46,7 +48,7 @@ class DIAMatrix:
 
     vals: torch.Tensor
     offsets: Tuple[int, ...]
-    n: int
+    n: int = field(metadata=UNKEYED)
     launch_plan: object = field(default=None, init=False, repr=False,
                                 compare=False)
 

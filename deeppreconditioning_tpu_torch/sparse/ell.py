@@ -6,11 +6,13 @@ Empty slots store column ``n_pad`` (one past the end) with value 0, and
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from deeppreconditioning_tpu_torch.utils.graphs import UNKEYED
 
 
 def csr_to_ell_arrays(csr, n_pad: int, sentinel: int | None = None):
@@ -37,12 +39,13 @@ class ELLMatrix:
 
     cols: int64 (n_pad, k) column per slot, sentinel n_pad.
     vals: (n_pad, k) entry values, 0 in empty slots.
-    n: true dimension (rows beyond n are all-sentinel).
+    n: true dimension (rows beyond n are all-sentinel); no product reads
+        it, so a CUDA graph's key leaves it out (``utils/graphs.py``).
     """
 
     cols: torch.Tensor
     vals: torch.Tensor
-    n: int
+    n: int = field(metadata=UNKEYED)
 
     @property
     def n_pad(self) -> int:

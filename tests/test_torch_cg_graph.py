@@ -1,6 +1,7 @@
-"""The single-system PCG's graphed chunk (``solvers/cg.py``): when it
-engages, its key, the static copies of the operands, and on a card the
-graphed solve against the eager loop, bit for bit.
+"""The single-system PCG's graphed chunk (``solvers/cg.py``) over the
+CUDA-graph seam (``utils/graphs.py``): when it engages, its key, the
+seam's static copies of an operand tree, and on a card the graphed solve
+against the eager loop, bit for bit.
 
 The CPU tests run the graphed solve's bookkeeping with the capture
 replaced by running the captured function again at each replay.  The
@@ -8,14 +9,27 @@ card tests use no JAX:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_cg_graph.py``.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
 
 from deeppreconditioning_tpu_torch import _backend
+from deeppreconditioning_tpu_torch.data.datasets import _prepare_sample
+from deeppreconditioning_tpu_torch.data.fvm import (
+    generate_sludge_case,
+    numpy_assembly,
+)
 from deeppreconditioning_tpu_torch.data.poisson import poisson_coeff_dia
-from deeppreconditioning_tpu_torch.ops import trisolve
+from deeppreconditioning_tpu_torch.models.neural_fsai import (
+    neural_fsai_case_plan,
+)
+from deeppreconditioning_tpu_torch.ops import fsai, trisolve
 from deeppreconditioning_tpu_torch.ops.dia_spmv import dia_matvec
 from deeppreconditioning_tpu_torch.ops.structured_fsai import (
     bands_to_dia,
@@ -26,7 +40,9 @@ from deeppreconditioning_tpu_torch.ops.structured_fsai import (
 from deeppreconditioning_tpu_torch.solvers import cg
 from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix
 from deeppreconditioning_tpu_torch.sparse.ell import ELLMatrix
-from deeppreconditioning_tpu_torch.utils import tracing
+from deeppreconditioning_tpu_torch.utils import graphs, tracing
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _sludge_like(seed: int, n: int, n_pad: int, dtype, device=None):
@@ -122,7 +138,7 @@ def test_engagement_rule(name):
     want, _, mode = want.partition(":")
     _, leaves = cg._graph_key(matvec, a, b, apply_m, m, 1e-8, 256, 4)
     with torch.set_grad_enabled(mode != "no_grad"):
-        assert cg._eager_because(matvec, apply_m, b, leaves) == want
+        assert cg._eager_because(matvec, apply_m, leaves) == want
 
 
 @pytest.mark.parametrize("fn", [
@@ -132,13 +148,29 @@ def test_declared_pairs(fn):
     """Every declared callable reads capture-safe; a declared pair on a
     CPU tensor still runs eagerly, for the device alone."""
     assert fn.capture_safe is True
-    b = torch.zeros(8)
-    assert cg._eager_because(fn, cg.identity_apply, b, [b]) == "device"
+    assert cg._eager_because(fn, cg.identity_apply,
+                             [torch.zeros(8)]) == "device"
 
 
 def test_undeclared_callables():
     for fn in (trisolve.ic_apply, _eager_twin(cg.dense_matvec)):
         assert not getattr(fn, "capture_safe", False)
+
+
+def test_kernel_wrappers_do_not_load_the_solvers():
+    """``capture_safe`` comes from the seam: importing the B2 wrapper and
+    the structured FSAI loads nothing of ``solvers``."""
+    code = ("import sys\n"
+            "import deeppreconditioning_tpu_torch.ops.dia_spmv\n"
+            "import deeppreconditioning_tpu_torch.ops.structured_fsai\n"
+            "print(sorted(m for m in sys.modules if m.startswith("
+            "'deeppreconditioning_tpu_torch.solvers')))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert cg.capture_safe is graphs.capture_safe
 
 
 # -- the key -------------------------------------------------------------
@@ -194,41 +226,76 @@ def test_key_refuses_other_operands():
     key, leaves = cg._graph_key(cg.ell_matvec, e1, b1, cg.dense_matvec,
                                 object(), 1e-8, 256, 4)
     assert key is None and leaves is None
+    with pytest.raises(TypeError):
+        graphs.walk((e1, b1, [b1]))
 
 
 # -- static copies -------------------------------------------------------
+
+def _sludge_plan_case(seed: int):
+    """(range plan (power 4, w 24, H 128) as tensors, dense A~, scales)
+    of a generated sludge case in n_pad 256: the learned setup's
+    operands."""
+    with numpy_assembly():
+        case = generate_sludge_case(np.random.default_rng(seed),
+                                    mesh_cells=1)
+    m = case.matrix
+    h = _prepare_sample(m.row, m.col, m.data, case.solution, case.rhs, 256)
+    a = np.zeros((256, 256))
+    a[h.rows, h.cols] = h.vals
+    pr, pc = fsai.tril_power_pattern(h.rows, h.cols, 256, power=4)
+    plan = fsai.build_range_fsai_plan(pr, pc, 256, width=24, range_h=128)
+    return (plan.to("cpu"), torch.as_tensor(a + np.tril(a, -1).T),
+            torch.as_tensor(h.scale))
+
 
 def _operands(kind: str, seed: int):
     if kind == "ell":
         ell, b, m = _sludge_like(seed, 40, 48, torch.float32)
         return ell, b, m
-    a, b, m, _ = _structured(seed, (6, 5, 4), torch.float64)
-    return a, b, m
+    if kind == "dia":
+        a, b, m, _ = _structured(seed, (6, 5, 4), torch.float64)
+        return a, b, m
+    if kind == "range plan":
+        return _sludge_plan_case(seed)
+    # the generic plan of one raw system; requests differ in its values
+    with numpy_assembly():
+        raw = generate_sludge_case(np.random.default_rng(0),
+                                   mesh_cells=1).matrix
+    case = neural_fsai_case_plan(raw, 2, 16, torch.float64, "cpu")
+    return case.plan, case.l0_vals * seed, case.scales + seed
 
 
-@pytest.mark.parametrize("kind", ["ell", "dia"])
+@pytest.mark.parametrize("kind", ["ell", "dia", "range plan",
+                                  "generic plan"])
 def test_static_copy_round_trip(kind):
-    """The static tree takes every leaf's layout and the sharing; a
-    second request's leaves copied in make it equal to that request."""
+    """The static tree takes every tensor's layout and the sharing, and
+    walks to the same key; a second request's tensors copied in make it
+    equal to that request."""
     first = _operands(kind, 1)
-    leaves, memo = [], {}
-    static_leaves = []
-    statics = [cg._static_copy(t, memo, static_leaves) for t in first]
-    cg._signature(tuple(first), leaves, {})
+    statics, static_leaves = graphs.static_copy(first)
+    key, leaves = graphs.walk(first)
+    assert graphs.walk(statics) == (key, static_leaves)
     assert len(leaves) == len(static_leaves)
     for s_t, t in zip(static_leaves, leaves):
         assert s_t.shape == t.shape and s_t.stride() == t.stride()
         assert s_t.dtype == t.dtype and s_t.data_ptr() != t.data_ptr()
     a_s, b_s, m_s = statics
+    assert type(a_s) is type(first[0])
     if kind == "dia":
         assert m_s[3] is a_s and a_s.offsets == first[0].offsets
-        assert a_s.launch_plan is None
+        assert a_s.n == first[0].n and a_s.launch_plan is None
         assert len(leaves) == 5  # a, b, c_up, c_low, q: a once
+    elif kind == "ell":
+        assert a_s.n == first[0].n and len(leaves) == 4
+    elif kind == "range plan":
+        assert (a_s.h, a_s.lo_static) == (first[0].h, first[0].lo_static)
+        assert len(leaves) == 7  # lo, local, pos, diag_pad, out_rows, A~, D
     else:
-        assert isinstance(a_s, ELLMatrix) and len(leaves) == 4
+        assert isinstance(a_s, fsai.FSAIPlan) and len(leaves) == 8
     second = _operands(kind, 2)
-    leaves2 = []
-    cg._signature(tuple(second), leaves2, {})
+    key2, leaves2 = graphs.walk(second)
+    assert key2 == key
     for s_t, t in zip(static_leaves, leaves2):
         s_t.copy_(t)
     for s_t, t in zip(static_leaves, leaves2):
@@ -236,9 +303,12 @@ def test_static_copy_round_trip(kind):
     if kind == "dia":
         assert torch.equal(a_s.vals, second[0].vals)
         assert torch.equal(m_s[2], second[2][2])
-    else:
+    elif kind == "ell":
         assert torch.equal(a_s.cols, second[0].cols)
         assert torch.equal(m_s, second[2])
+    else:
+        assert torch.equal(a_s.out_rows, second[0].out_rows)
+        assert torch.equal(b_s, second[1]) and torch.equal(m_s, second[2])
 
 
 # -- the graphed solve's bookkeeping, capture replaced -------------------
@@ -254,16 +324,21 @@ class _Rerun:
         self.fn()
 
 
+def _rerun_capture(device, warm, *fns):
+    """``graphs.capture_graphs`` on the CPU: the warm-up, then stand-ins
+    for the graphs."""
+    del device
+    return warm(), [_Rerun(fn) for fn in fns]
+
+
 @pytest.fixture
 def rerun_graphs(monkeypatch, fresh_graphs):
-    """The graphed solve on the CPU: every call engages, and a replay
-    reruns what would have been captured."""
-    rule = cg._eager_because
-    monkeypatch.setattr(cg, "_eager_because", lambda *args: (
+    """The graphed solve on the CPU: every declared call engages, and a
+    replay reruns what would have been captured."""
+    rule = graphs.eager_because
+    monkeypatch.setattr(graphs, "eager_because", lambda *args: (
         None if rule(*args) == "device" else rule(*args)))
-    monkeypatch.setattr(
-        cg._ChunkGraph, "_warm_and_capture",
-        lambda self: (_Rerun(self._start), _Rerun(self._chunk)))
+    monkeypatch.setattr(graphs, "capture_graphs", _rerun_capture)
     return fresh_graphs
 
 
@@ -335,12 +410,12 @@ def test_graphed_flow_counts_operator_products(rerun_graphs):
 
 
 def test_graph_cache_is_bounded(rerun_graphs):
-    for check_every in range(1, _backend.GRAPH_KEYS + 3):
+    for check_every in range(1, graphs.GRAPH_KEYS + 3):
         a, b, m = _sludge_like(5, 40, 48, torch.float64)
         _solve(cg.ell_matvec, a, b, cg.dense_matvec, m, check_every)
-    assert len(rerun_graphs) == _backend.GRAPH_KEYS
+    assert len(rerun_graphs) == graphs.GRAPH_KEYS
     assert [key[-1] for key in rerun_graphs] == list(
-        range(3, _backend.GRAPH_KEYS + 3))
+        range(3, graphs.GRAPH_KEYS + 3))
 
 
 def test_launch_replay_counts():
@@ -403,8 +478,8 @@ def test_cuda_graphed_matches_eager(cuda_device, fresh_graphs):
     kept = []
     for seed in (0, 1, 2):
         a, b, m = _sludge_case(seed, cuda_device)
-        assert cg._eager_because(cg.ell_matvec, cg.dense_matvec, b,
-                                 [m]) is None
+        assert cg._eager_because(cg.ell_matvec, cg.dense_matvec,
+                                 [b, m]) is None
         got = _solve(cg.ell_matvec, a, b, cg.dense_matvec, m, 8)
         want = _solve(_eager_twin(cg.ell_matvec), a, b,
                       _eager_twin(cg.dense_matvec), m, 8)

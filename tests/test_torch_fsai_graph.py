@@ -32,7 +32,7 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
 )
 from deeppreconditioning_tpu_torch.ops import fsai
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
-from deeppreconditioning_tpu_torch.utils import tracing
+from deeppreconditioning_tpu_torch.utils import graphs, tracing
 
 BEST = (Path(__file__).resolve().parents[1] / "assets" / "checkpoints_fsai"
         / "best.msgpack")
@@ -78,7 +78,7 @@ def _group(seeds, n_pad, mesh_cells, device, range_h=128):
 
 def _eager(monkeypatch, *args, **kwargs):
     with monkeypatch.context() as patch:
-        patch.setattr(neural_fsai, "_eager_because", lambda *a: "eager")
+        patch.setattr(graphs, "eager_because", lambda *a: "eager")
         return neural_fsai_dense_preconditioner(*args, **kwargs)
 
 
@@ -102,22 +102,21 @@ class _Rerun:
         self.fn()
 
 
-def _warm_and_rerun(graph):
-    """``_SetupGraph._warm_and_capture`` on the CPU: the eager run, then
-    stand-ins for the two graphs."""
-    graph._warm()
-    return _Rerun(graph._forward), _Rerun(graph._wrap)
+def _rerun_capture(device, warm, *fns):
+    """``graphs.capture_graphs`` on the CPU: the eager run, then
+    stand-ins for the graphs."""
+    del device
+    return warm(), [_Rerun(fn) for fn in fns]
 
 
 @pytest.fixture
 def rerun_graphs(monkeypatch, fresh_graphs):
     """The graphed setup on the CPU, one thread: every call engages but a
     "grad" one, and a replay reruns what would have been captured."""
-    rule = neural_fsai._eager_because
-    monkeypatch.setattr(neural_fsai, "_eager_because", lambda *args: (
+    rule = graphs.eager_because
+    monkeypatch.setattr(graphs, "eager_because", lambda *args: (
         None if rule(*args) == "device" else rule(*args)))
-    monkeypatch.setattr(neural_fsai._SetupGraph, "_warm_and_capture",
-                        _warm_and_rerun)
+    monkeypatch.setattr(graphs, "capture_graphs", _rerun_capture)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield fresh_graphs
@@ -209,15 +208,15 @@ def test_grad_caller_stays_eager(model, rerun_graphs):
 
 
 def test_setup_graph_cache_is_bounded(rerun_graphs):
-    """More models than ``_backend.GRAPH_KEYS``, each set up twice: the
+    """More models than ``graphs.GRAPH_KEYS``, each set up twice: the
     oldest keys go."""
     inputs = _inputs(0, 256, 1, "cpu")
     models = [neural_fsai.NeuralFSAI(24, 8, 1).requires_grad_(False)
-              for _ in range(_backend.GRAPH_KEYS + 2)]
+              for _ in range(graphs.GRAPH_KEYS + 2)]
     for m in models:
         for _ in range(2):
             neural_fsai_dense_preconditioner(m, *inputs)
-    assert len(rerun_graphs) == _backend.GRAPH_KEYS
+    assert len(rerun_graphs) == graphs.GRAPH_KEYS
     assert [key[0] for key in rerun_graphs] == models[2:]
     assert not rerun_graphs.waiting
 
@@ -228,13 +227,13 @@ def test_cpu_setup_takes_no_graph(model, fresh_graphs):
     assert not fresh_graphs
 
 
-# -- the cache of captured graphs (``_backend.GraphCache``) ----------------
+# -- the cache of captured graphs (``graphs.GraphCache``) -----------------
 
 @pytest.mark.parametrize("capture_on", [1, 2, 3])
 def test_graph_cache_captures_on_the_nth_call(capture_on):
     """A key's calls before its ``capture_on``-th get None; that call
     captures once; later calls get the same entry."""
-    cache, made = _backend.GraphCache(capture_on), []
+    cache, made = graphs.GraphCache(capture_on), []
 
     def capture():
         made.append(object())
@@ -249,8 +248,8 @@ def test_graph_cache_captures_on_the_nth_call(capture_on):
 def test_graph_cache_waiting_is_bounded():
     """Keys seen once are remembered for at most ``GRAPH_KEYS`` keys, the
     least recently seen forgotten first; ``clear`` forgets both."""
-    cache = _backend.GraphCache(capture_on=2)
-    keys = range(_backend.GRAPH_KEYS + 2)
+    cache = graphs.GraphCache(capture_on=2)
+    keys = range(graphs.GRAPH_KEYS + 2)
     for key in keys:
         assert cache.lookup(key, object) is None
     assert list(cache.waiting) == list(keys)[2:]
@@ -296,7 +295,8 @@ def test_cuda_graphed_setup_matches_eager(cuda_device, fresh_graphs,
         cuda_device).eval()
     cases = [_inputs(seed, 1024, 2, cuda_device) for seed in (0, 1, 2, 6)]
     assert len({c[3] for c in cases}) == 4
-    assert neural_fsai._eager_because(model, cases[0][1], []) is None
+    _, leaves = neural_fsai._setup_key(model, *cases[0], torch.float32, None)
+    assert graphs.eager_because(leaves, model.parameters()) is None
     tracing.reset()
     _backend.reset_launch_counts()
     with torch.profiler.profile(

@@ -25,6 +25,7 @@ from deeppreconditioning_tpu_torch.models.neural_fsai import (
 from deeppreconditioning_tpu_torch.models import neural_fsai
 from deeppreconditioning_tpu_torch.ops import fsai
 from deeppreconditioning_tpu_torch.train.checkpoint import load_checkpoint
+from deeppreconditioning_tpu_torch.utils import graphs
 from deeppreconditioning_tpu_torch.data.fvm import numpy_assembly
 
 
@@ -344,4 +345,4 @@ def test_setup_eager_because(name, want):
     _, leaves = neural_fsai._setup_key(model, plan, operand, scales, n0,
                                        torch.float32, None)
     with torch.set_grad_enabled(not name.endswith("grad mode off")):
-        assert neural_fsai._eager_because(model, operand, leaves) == want
+        assert graphs.eager_because(leaves, model.parameters()) == want
