@@ -9,7 +9,8 @@ Phases (each raises on failure):
   2. build: compile and load the CUDA kernels from ``csrc/`` (nvcc, one
      process per source, in parallel); print each source's nvcc time and
      ptxas's registers, stack and spills per kernel instance, and fail on
-     any spill in B1's, B2's or B3's instances but B1's float64 ones,
+     any spill in B1's, B2's, B3's or the Gram assembly's instances but
+     B1's float64 ones,
      whose spills are printed and not refused (SPILL_RECORDED);
   2b. the host runtime (``csrc/host_runtime.cpp``, g++ into
      ``build/torch_host/``): it must build and load (there is no numpy
@@ -55,6 +56,13 @@ Phases (each raises on failure):
      operations; B3 on its non-sentinel blocks, at m > 1 against the
      3xTF32 roof with the float32 roof beside it); a kernel-only time above
      its per-call time (by more than 5%) fails;
+  3e. the Gram slabs' assembly (``csrc/gram_assembly.cu``, which replaces
+     no TPU kernel) against its plain version, bit for bit and twice, at
+     the per-case shape (B 128 windows of H 128 of the first sludge case
+     from the flagship's seed whose plan is a range plan, n_pad 1024) in
+     float32 and float64, timed as in phase 3 beside
+     ``index_put_(accumulate=True)`` into a zero M and its byte bound;
+     the per-case main path (phase 4) must launch it;
   3d. B1's float64 instance against its float64 plain version at w 24, N
      1024 and 131 072, and w 41, N 131 072, within rtol 1e-10 / atol
      1e-12, timed as phase 3 with ``torch.linalg.solve_ex`` in float64 and
@@ -343,6 +351,9 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from deeppreconditioning_tpu_torch import _backend, native  # noqa: E402
+from deeppreconditioning_tpu_torch.data.datasets import (  # noqa: E402
+    _prepare_sample,
+)
 from deeppreconditioning_tpu_torch.data.fvm import (  # noqa: E402
     DT,
     assemble_pressure_poisson,
@@ -412,6 +423,7 @@ from deeppreconditioning_tpu_torch.ops.dia_spmv import (  # noqa: E402
 )
 from deeppreconditioning_tpu_torch.ops.fsai import (  # noqa: E402
     RangeFSAIPlan,
+    build_range_fsai_plan,
     local_systems,
     lookup_local_blocks,
     pattern_col_width,
@@ -421,6 +433,10 @@ from deeppreconditioning_tpu_torch.ops.fsai import (  # noqa: E402
 from deeppreconditioning_tpu_torch.ops.gauss_jordan import (  # noqa: E402
     masked_gauss_jordan,
     masked_gauss_jordan_torch,
+)
+from deeppreconditioning_tpu_torch.ops.gram_assembly import (  # noqa: E402
+    gram_assembly,
+    gram_assembly_torch,
 )
 from deeppreconditioning_tpu_torch.ops.gmg import (  # noqa: E402
     galerkin_coarse_dia,
@@ -464,6 +480,7 @@ from deeppreconditioning_tpu_torch.utils.profiling import (  # noqa: E402
     dia_work,
     fp64_tflop_s,
     gauss_jordan_work,
+    gram_assembly_work,
     time_call,
     time_graph,
 )
@@ -481,7 +498,8 @@ PTXAS_FUNCTION = re.compile(
     r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) "
     r"bytes spill stores, (\d+) bytes spill loads\n[^\n]*?Used (\d+) "
     r"registers")
-NO_SPILL_SOURCES = ("gauss_jordan.cu", "dia_spmv.cu", "bsr_spmm.cu")
+NO_SPILL_SOURCES = ("gauss_jordan.cu", "dia_spmv.cu", "bsr_spmm.cu",
+                    "gram_assembly.cu")
 # B1's float64 instances (``gauss_jordan_kernel<double, W, T>``): their
 # spills are printed and counted, not refused (its W 64 holds 130 doubles
 # a thread).
@@ -634,6 +652,7 @@ HOST_PATHS: dict = {}
 # the generate stage (4o).
 GJ64_SHAPES = ((1024, 24), (131072, 24), (131072, 41))  # (N, w)
 GJ64_MAIN_SHAPE = (1024, 24)  # a per-case float64 setup's
+GRAM_N_PAD, GRAM_H = 1024, 128  # the per-case cell's Gram assembly
 GJ64_RTOL, GJ64_ATOL = 1e-10, 1e-12
 RESIDUAL_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
                     / "residual_parity.json")
@@ -1282,6 +1301,69 @@ def check_bsr_spmm(dev, card):
                 del x, got, ref
             del library
     return max_err, times, operators
+
+
+def gram_assembly_starts(dev):
+    """The window starts of a per-case range plan (power 4, w 24, H 128)
+    of the first sludge case from the flagship's seed that takes one, on
+    ``dev``: B 128 at n_pad 1024, lo_b = min(8 b, 896)."""
+    rng = np.random.default_rng(SEED)
+    while True:
+        case = generate_sludge_case(rng, mesh_cells=2)
+        m = case.matrix
+        h = _prepare_sample(m.row, m.col, m.data, case.solution, case.rhs,
+                            GRAM_N_PAD)
+        pr, pc = tril_power_pattern(h.rows, h.cols, GRAM_N_PAD, power=4)
+        try:
+            plan = build_range_fsai_plan(pr, pc, GRAM_N_PAD, width=24,
+                                         range_h=GRAM_H)
+        except ValueError:  # a spread beyond H: the generic plan's case
+            continue
+        return torch.as_tensor(np.asarray(plan.lo, np.int64), device=dev)
+
+
+def check_gram_assembly(dev, card):
+    """Phase 3e: the Gram slabs' assembly (``csrc/gram_assembly.cu``)
+    against its plain version, bit for bit, at the per-case shape (B 128,
+    H 128, n_pad 1024) in float32 and float64, each timed as in phase 3
+    beside ``index_put_(accumulate=True)`` into a zero M (the call it
+    replaced) and the bound of its bytes.  Returns the records by dtype."""
+    rng = np.random.default_rng(5)
+    lo = gram_assembly_starts(dev)
+    b, h, n_pad = lo.shape[0], GRAM_H, GRAM_N_PAD
+    if lo.max().item() != n_pad - h or b != n_pad // 8:
+        raise AssertionError(f"per-case starts off the cell's shape: {lo}")
+    win = lo[:, None] + torch.arange(h, device=dev)
+    rows = win[:, :, None].expand(b, h, h)
+    cols = win[:, None, :].expand(b, h, h)
+    records = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.float64):
+            g = torch.tensor(rng.standard_normal((b, h, h)), dtype=dtype,
+                             device=dev)
+            got = gram_assembly(g, lo, n_pad)
+            again = gram_assembly(g, lo, n_pad)
+            torch.cuda.synchronize()
+            want = gram_assembly_torch(g, lo, n_pad)
+            if not (torch.equal(got, want) and torch.equal(got, again)):
+                raise AssertionError(
+                    f"the Gram assembly ({dtype}) differs from its plain "
+                    f"version: max abs err {(got - want).abs().max()}")
+            library = torch.zeros_like(got).index_put_((rows, cols), g,
+                                                       accumulate=True)
+            lib_err = float((library - want).abs().max())
+            itemsize = torch.finfo(dtype).bits // 8
+            records[dtype] = measure(
+                f"gram_assembly {str(dtype).removeprefix('torch.')} B {b} H "
+                f"{h} n_pad {n_pad} (bit-equal to its plain version, twice;"
+                f" library index_put_ max abs err {lib_err:.3e})",
+                lambda: gram_assembly(g, lo, n_pad),
+                lambda: gram_assembly_torch(g, lo, n_pad),
+                lambda: torch.zeros_like(got).index_put_(
+                    (rows, cols), g, accumulate=True),
+                gram_assembly_work(b, h, n_pad, itemsize), dev, card)
+            del g, got, again, want, library
+    return records
 
 
 def run_roofline_path(dev, card, operators):
@@ -2855,7 +2937,7 @@ def check_generate(card):
 def build_report(build_s):
     """Phase 2's record: the build's wall time, each source's nvcc time,
     and ptxas's registers and spills per kernel instance; fails on any
-    spill in B1's, B2's or B3's instances."""
+    spill in B1's, B2's, B3's or the Gram assembly's instances."""
     print(f"build: {build_s:.1f} s (0 if cached); nvcc per source "
           + ", ".join(f"{src} {s:.1f} s"
                       for src, s in sorted(_backend.build_seconds.items())))
@@ -2901,6 +2983,9 @@ def main() -> None:
     dia_err, dia_times = check_dia_spmv(dev, card)
     bsr_err, bsr_times, bsr_ops = check_bsr_spmm(dev, card)
 
+    # 3e. the Gram slabs' assembly
+    gram_times = check_gram_assembly(dev, card)
+
     # 3d. B1's float64 instance
     t0 = time.perf_counter()
     gj64_err, gj64_times = check_gauss_jordan_f64(dev, card)
@@ -2920,6 +3005,7 @@ def main() -> None:
     _backend.reset_launch_counts()
     suite = run_main_path(dev, results_directory=RESULTS, cases=cases)
     launches = _backend.launch_counts()["gauss_jordan"]
+    gram_launches = _backend.launch_counts()["gram_assembly"]
     hold_host("per-case", ("ic0", "levels"))
     plain = _backend.plain_cuda_counts()
     wall_s = time.perf_counter() - t0
@@ -2939,6 +3025,10 @@ def main() -> None:
           f"card: {plain}")
     if launches == 0 or launches != expected:
         raise AssertionError("main path did not run B1 once per setup")
+    print(f"Gram assembly launches on the main path: {gram_launches} (one "
+          f"a range-plan fsai or learned setup, graph replays included)")
+    if gram_launches == 0:
+        raise AssertionError("main path did not run the Gram assembly")
     if any(plain.values()):
         raise AssertionError("the main path ran a plain version on the card")
 
@@ -3073,7 +3163,8 @@ def main() -> None:
     print(f"phase 4o (generate stage): {time.perf_counter() - t0:.1f} s")
 
     # 5. records
-    paths = {"per-case": {"gauss_jordan": launches},
+    paths = {"per-case": {"gauss_jordan": launches,
+                          "gram_assembly": gram_launches},
              "train": train_launches, "train-dp": dp_launches,
              "dryrun": dryrun_launches, "conv": conv_launches,
              "conv-train": conv_train_launches,
@@ -3127,6 +3218,15 @@ def main() -> None:
         "launches": sum(c.get("bsr_spmm", 0) for c in paths.values()),
         "max_abs_err": bsr_err,
         **bsr_times[(B3_MAIN, 1)],
+    }, {
+        "name": "gram_assembly",
+        "route": "cuda",
+        "source": "deeppreconditioning_tpu_torch/csrc/gram_assembly.cu",
+        "replaces": "none (index_put_(accumulate=True) in "
+                    "deeppreconditioning_tpu_torch/ops/fsai.py)",
+        "launches": sum(c.get("gram_assembly", 0) for c in paths.values()),
+        "max_abs_err": 0.0,
+        **gram_times[torch.float32],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

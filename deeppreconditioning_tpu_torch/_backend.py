@@ -52,7 +52,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("gauss_jordan", "dia_spmv", "bsr_spmm")
+KERNELS = ("gauss_jordan", "dia_spmv", "bsr_spmm", "gram_assembly")
 HOST_SOURCE = CSRC / "host_runtime.cpp"
 HOST_BUILD_DIR = BUILD_DIR.parent / "torch_host"
 # -ffp-contract=off: no fused multiply-add, so a factor rounds as numpy's
@@ -261,6 +261,13 @@ def kernel_library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.dp_bsr_spmm_f32.restype = ctypes.c_int
+    # g, lo, m, B, H, n_pad, the stream
+    for entry in (lib.dp_gram_assembly_f32, lib.dp_gram_assembly_f64):
+        entry.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        entry.restype = ctypes.c_int
     _library = lib
     return lib
 

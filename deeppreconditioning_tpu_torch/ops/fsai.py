@@ -40,6 +40,7 @@ import scipy.sparse as sp
 import torch
 
 from deeppreconditioning_tpu_torch.ops.gauss_jordan import masked_gauss_jordan
+from deeppreconditioning_tpu_torch.ops.gram_assembly import gram_assembly
 
 BLOCK_COLS = 8  # JB: consecutive columns that share one row window
 
@@ -574,8 +575,9 @@ def range_m_from_strips(
     C_eff = D^-1/2 C (``d_isqrt`` folds the Jacobi scaling into the rows)
     with rows and columns >= n0 masked: per block the (H, H) Gram slab
     G_b = c_b^T c_b, accumulated at (lo_b, lo_b).  Windows overlap, so the
-    slabs are added: by ``index_put_(accumulate=True)``, or on a plan with
-    static window starts (every group) by one slab add per block."""
+    slabs are added in ascending b: on a plan with static window starts
+    (every group) by one slab add per block, on one case's plan by
+    ``ops/gram_assembly.gram_assembly`` from the starts on the device."""
     n_pad, h, jb = plan.n_pad, plan.h, plan.block_cols
     b = n_pad // jb
     win = _windows(plan)  # (..., B, H)
@@ -588,19 +590,15 @@ def range_m_from_strips(
     c_local = torch.where((win < n0)[..., :, None, :], c_local, 0.0)
 
     g = torch.matmul(c_local.transpose(-1, -2), c_local)  # (..., B, H, H)
-    m = strips.new_zeros(*strips.shape[:-3], n_pad, n_pad)
     if plan.lo_static is not None:
+        m = strips.new_zeros(*strips.shape[:-3], n_pad, n_pad)
         for i, lo in enumerate(plan.lo_static):
             m[..., lo:lo + h, lo:lo + h] += g[..., i, :, :]
         return m
     if win.dim() != 2:
         raise ValueError("a group of plans without static starts has no "
                          "Gram assembly")
-    m.index_put_(
-        (win[:, :, None].expand(b, h, h), win[:, None, :].expand(b, h, h)),
-        g, accumulate=True,
-    )
-    return m
+    return gram_assembly(g, plan.lo, n_pad)
 
 
 def range_dense_factor_slabs(plan: RangeFSAIPlan,

@@ -20,8 +20,8 @@ bound (``KernelWork.bound``) is the least time the card could take for the
 same work: the larger of its minimum bytes over the HBM bandwidth and its
 flops over the peak of the units it runs on (float32 outside the tensor
 cores, or 3xTF32 on them; float64 outside them, ``fp64_tflop_s``);
-``gauss_jordan_work``, ``dia_work`` and
-``bsr_work`` count the bytes and flops that the inputs need.
+``gauss_jordan_work``, ``dia_work``, ``bsr_work`` and
+``gram_assembly_work`` count the bytes and flops that the inputs need.
 """
 
 from __future__ import annotations
@@ -235,6 +235,15 @@ def bsr_work(blocks: int, n_pad: int, bs: int, m: int) -> KernelWork:
     neither its bytes nor its flops."""
     return KernelWork(bytes=4 * (blocks * bs * bs + 2 * n_pad * m),
                       flops=2 * blocks * bs * bs * m)
+
+
+def gram_assembly_work(b: int, h: int, n_pad: int,
+                       itemsize: int = 4) -> KernelWork:
+    """The Gram slabs' assembly on b slabs of H x H into an n_pad x n_pad
+    M: read the slabs and the b int64 window starts, write M; one add per
+    slab entry."""
+    return KernelWork(bytes=itemsize * (b * h * h + n_pad * n_pad) + 8 * b,
+                      flops=b * h * h)
 
 
 @dataclass
