@@ -9,6 +9,25 @@ the structured-FSAI factor S = C C^T (classical or the learned head).
 One symmetric V(1,1)-cycle is the PCG preconditioner.  Every operator
 and smoother application is a DIA matvec (kernel B2 on the card, on every
 level).
+
+``gmg_apply`` is declared ``capture_safe``, so on the card the single-system
+PCG replays its cycles inside the solver's CUDA graphs (``solvers/cg.py``;
+the hierarchy's levels are walked and copied in per solve by
+``utils/graphs.py``).  It declares the products with the system's operator
+one cycle makes (``operator_products``: the two fine-level residuals),
+which the solver counts.
+
+On the card ``build_gmg`` of a damped-Jacobi hierarchy replays its
+Galerkin levels and the root's dense assembly from two CUDA graphs, keyed
+on the fine operator's walk (``utils/graphs.py``) and the grid, captured on
+a key's second call (``SETUP_GRAPHS``; the first runs eagerly, as do the
+CPU, a caller under grad and an FSAI-smoothed hierarchy); the root's
+inverse runs eagerly after them, and the levels are fresh copies of the
+graphs' outputs, so a hierarchy outlives the next setup.  A replay runs the
+eager path's kernels in its order, so it gives the same bits.  Under a
+``torch.profiler`` ``build_gmg`` records the span ``gmg.setup`` with the
+children ``gmg.galerkin`` (the levels' inverse diagonals and coarse
+operators) and ``gmg.root`` (the root's dense assembly and inverse).
 """
 
 from __future__ import annotations
@@ -27,6 +46,9 @@ from deeppreconditioning_tpu_torch.ops.structured_fsai import (
     structured_setup,
 )
 from deeppreconditioning_tpu_torch.sparse.dia import DIAMatrix, pad_rows
+from deeppreconditioning_tpu_torch.utils import graphs
+from deeppreconditioning_tpu_torch.utils.graphs import capture_safe
+from deeppreconditioning_tpu_torch.utils.tracing import span
 
 OMEGA = 0.7  # damped-Jacobi weight
 MIN_SIDE = 8  # coarsen while every side is even and >= 2 * MIN_SIDE
@@ -163,6 +185,33 @@ def _dia_to_dense_static(a: DIAMatrix) -> torch.Tensor:
     return out
 
 
+def level_shapes(shape: Sequence[int]) -> tuple:
+    """(the smoothed levels' shapes, the root's): levels are taken while
+    every side is even and >= 2 * ``MIN_SIDE``."""
+    s, lvl_shapes = tuple(int(d) for d in shape), []
+    while all(d % 2 == 0 and d >= 2 * MIN_SIDE for d in s):
+        lvl_shapes.append(s)
+        s = tuple(d // 2 for d in s)
+    return tuple(lvl_shapes), s
+
+
+def _galerkin_levels(a: DIAMatrix, lvl_shapes) -> tuple:
+    """(each level's inverse diagonal, each coarse operator: the next
+    level's, the last the root's)."""
+    inv_diags, coarse = [], []
+    lvl_a = a
+    for lvl_shape in lvl_shapes:
+        inv_diags.append(inverse_diagonal(lvl_a))
+        lvl_a = galerkin_coarse_dia(lvl_a, lvl_shape)
+        coarse.append(lvl_a)
+    return inv_diags, coarse
+
+
+def _symmetric_inverse(root: torch.Tensor) -> torch.Tensor:
+    inv = torch.linalg.inv(root)
+    return 0.5 * (inv + inv.T)
+
+
 def build_gmg(
     a: DIAMatrix,
     shape: Sequence[int],
@@ -178,35 +227,87 @@ def build_gmg(
     is None, else the NeuralFSAI head), scaled by sqrt(min(1, 1.9 /
     lambda)) in each half with lambda from 8 power steps of C C^T A (the
     smoother safeguard); the others by damped Jacobi (``OMEGA``).  The
-    root is inverted densely and symmetrised, 0.5 (inv + inv^T).
+    root is inverted densely and symmetrised, 0.5 (inv + inv^T).  A
+    damped-Jacobi hierarchy on the card is replayed from CUDA graphs (see
+    the module docstring).
     """
-    shape = tuple(int(s) for s in shape)
-    lvl_shapes = []
-    s = shape
-    while all(d % 2 == 0 and d >= 2 * MIN_SIDE for d in s):
-        lvl_shapes.append(s)
-        s = tuple(d // 2 for d in s)
+    lvl_shapes, root_shape = level_shapes(shape)
+    dev = a.vals.device
+    with span("gmg.setup", dev):
+        graph = None
+        if fsai_levels == 0:
+            key, leaves = graphs.walk(a)
+            if graphs.eager_because(leaves) is None:
+                graph = SETUP_GRAPHS.lookup((key, lvl_shapes), lambda: (
+                    _SetupGraph(leaves, a, lvl_shapes)))
+        if graph is not None:
+            inv_diags, coarse, coarse_inv = graph.run(leaves)
+        else:
+            with span("gmg.galerkin", dev):
+                inv_diags, coarse = _galerkin_levels(a, lvl_shapes)
+            with span("gmg.root", dev):
+                coarse_inv = _symmetric_inverse(_dia_to_dense_static(
+                    coarse[-1] if coarse else a))
+        levels = []
+        for lvl_idx, (lvl_shape, lvl_a, inv_diag) in enumerate(
+                zip(lvl_shapes, (a, *coarse), inv_diags)):
+            c_up = c_low = None
+            if lvl_idx < fsai_levels:
+                plan = build_structured_plan(lvl_shape, power=plan_power)
+                bands, _ = structured_setup(lvl_a, plan, model)
+                c_up, c_low = bands_to_dia(bands, plan.offsets, lvl_a.n)
+                scale = _smoother_scale(lvl_a, c_up, c_low)
+                c_up = replace(c_up, vals=c_up.vals * torch.sqrt(scale))
+                c_low = replace(c_low, vals=c_low.vals * torch.sqrt(scale))
+            levels.append(GMGLevel(a=lvl_a, inv_diag=inv_diag, c_up=c_up,
+                                   c_low=c_low, shape=lvl_shape,
+                                   omega=OMEGA))
+    return GMGPreconditioner(levels=tuple(levels), coarse_inv=coarse_inv,
+                             coarse_shape=root_shape)
 
-    levels = []
-    lvl_a = a
-    for lvl_idx, lvl_shape in enumerate(lvl_shapes):
-        c_up = c_low = None
-        if lvl_idx < fsai_levels:
-            plan = build_structured_plan(lvl_shape, power=plan_power)
-            bands, _ = structured_setup(lvl_a, plan, model)
-            c_up, c_low = bands_to_dia(bands, plan.offsets, lvl_a.n)
-            scale = _smoother_scale(lvl_a, c_up, c_low)
-            c_up = replace(c_up, vals=c_up.vals * torch.sqrt(scale))
-            c_low = replace(c_low, vals=c_low.vals * torch.sqrt(scale))
-        levels.append(GMGLevel(a=lvl_a, inv_diag=inverse_diagonal(lvl_a),
-                               c_up=c_up, c_low=c_low, shape=lvl_shape,
-                               omega=OMEGA))
-        lvl_a = galerkin_coarse_dia(lvl_a, lvl_shape)
 
-    inv = torch.linalg.inv(_dia_to_dense_static(lvl_a))
-    return GMGPreconditioner(levels=tuple(levels),
-                             coarse_inv=0.5 * (inv + inv.T),
-                             coarse_shape=s)
+class _SetupGraph(graphs.GraphEntry):
+    """One key's static fine operator and its two graphs: the Galerkin
+    levels, and the root's dense assembly (see the module docstring)."""
+
+    def __init__(self, leaves, a: DIAMatrix, lvl_shapes) -> None:
+        super().__init__(a, a.vals.device)
+        self.lvl_shapes = lvl_shapes
+        self.load(leaves)
+        _, self.graphs = graphs.capture_graphs(self.device, self._warm,
+                                               self._galerkin, self._root)
+
+    def _galerkin(self) -> None:
+        self.inv_diags, self.coarse = _galerkin_levels(self.operands,
+                                                       self.lvl_shapes)
+
+    def _root(self) -> None:
+        self.root = _dia_to_dense_static(
+            self.coarse[-1] if self.coarse else self.operands)
+
+    def _warm(self) -> None:
+        self._galerkin()
+        self._root()
+
+    def run(self, leaves) -> tuple:
+        """(fresh inverse diagonals, fresh coarse operators, the root's
+        symmetric inverse) of the fine operator's tensors ``leaves``."""
+        galerkin, root = self.graphs
+        dev = self.device
+        self.load(leaves)
+        with span("gmg.galerkin", dev):
+            galerkin.replay()
+        with span("gmg.root", dev):
+            root.replay()
+            coarse_inv = _symmetric_inverse(self.root)
+        return ([d.clone() for d in self.inv_diags],
+                [replace(c, vals=c.vals.clone()) for c in self.coarse],
+                coarse_inv)
+
+
+# (fine operator's key, level shapes) -> _SetupGraph, captured on the
+# key's second call
+SETUP_GRAPHS = graphs.GraphCache(capture_on=2)
 
 
 def _smoother_scale(a: DIAMatrix, c_up: DIAMatrix,
@@ -232,8 +333,11 @@ def _smooth(lev: GMGLevel, r: torch.Tensor) -> torch.Tensor:
     return dia_matvec(lev.c_low, dia_matvec(lev.c_up, r))
 
 
+@capture_safe
 def gmg_apply(m: GMGPreconditioner, r: torch.Tensor) -> torch.Tensor:
-    """One symmetric V(1,1)-cycle: z ~= A^-1 r (the PCG apply)."""
+    """One symmetric V(1,1)-cycle: z ~= A^-1 r (the PCG apply).  It
+    launches on the current stream and reads nothing on the host, so the
+    solver may replay it from a CUDA graph."""
 
     def cycle(lvl: int, r: torch.Tensor) -> torch.Tensor:
         if lvl == len(m.levels):
@@ -247,3 +351,6 @@ def gmg_apply(m: GMGPreconditioner, r: torch.Tensor) -> torch.Tensor:
         return x + _smooth(lev, r - dia_matvec(lev.a, x))
 
     return cycle(0, r)
+
+
+gmg_apply.operator_products = 2  # the fine level's two residuals a cycle

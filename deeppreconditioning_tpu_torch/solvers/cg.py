@@ -26,11 +26,12 @@ On a CUDA device ``preconditioned_conjugate_gradient`` replays the chunk
 from CUDA graphs (``utils/graphs.py``) where ``matvec`` and ``apply_m``
 are both declared ``capture_safe`` (``ell_matvec``, ``dense_matvec``,
 ``identity_apply``, ``ops.dia_spmv.dia_matvec``, the apply of
-``ops.structured_fsai.make_structured_poly_apply_dia``) and the seam's
-eager rule lets it; every other call (the IC and ILU level waves, AMG,
-GMG, a caller's own closure, the CPU) runs the eager loop.  The key adds
-the two callables, ``rtol``, ``max_iter`` and ``check_every`` to the walk
-of ``(a_data, b, m_data)`` and is captured on its first call.  The stages
+``ops.structured_fsai.make_structured_poly_apply_dia``, the multigrid's
+``ops.gmg.gmg_apply``) and the seam's eager rule lets it; every other call
+(the IC and ILU level waves, AMG, a caller's own closure, the CPU) runs
+the eager loop.  The key adds the two callables, ``rtol``, ``max_iter``
+and ``check_every`` to the walk of ``(a_data, b, m_data)`` (a multigrid's
+levels and root included) and is captured on its first call.  The stages
 are the start and one chunk of ``check_every`` masked iterations over a
 static x, r, z, p, k, done, b.b and ``done | k >= max_iter``: a solve
 replays the start, then per chunk reads the last on the host and replays

@@ -10,9 +10,11 @@ before run eagerly and are only counted).
 ``walk`` turns a call's operand tree (tensors, tuples, None, dataclasses)
 into a key part and its tensors.  A tensor enters by shape, strides,
 dtype and device; a dataclass by its class and its ``init`` fields in
-order, a tensor field walked and any other by value, but for a field
-declared ``UNKEYED``; which tensors and dataclasses are one object enters
-too.  Anything else raises TypeError, and the call stays eager.  The
+order, but for a field declared ``UNKEYED``: a field that holds a tensor,
+a dataclass or a tuple with one of them inside (a multigrid's levels) is
+walked, any other (an int, a float, a tuple of ints, None) enters by
+value.  Which tensors and dataclasses are one object enters too, however
+deep.  Anything else raises TypeError, and the call stays eager.  The
 caller adds to the key what else its graphs bake in.
 
 An entry rebuilds the tree over new tensors of the same layouts and
@@ -78,6 +80,15 @@ def _keyed(obj):
             if f.init and f.metadata.get("graph_key", True)]
 
 
+def _walked(value) -> bool:
+    """Whether a dataclass field's ``value`` is walked (a tensor, a
+    dataclass, or a tuple holding one of them) rather than keyed by
+    value."""
+    if torch.is_tensor(value) or is_dataclass(value):
+        return True
+    return isinstance(value, tuple) and any(_walked(v) for v in value)
+
+
 def walk(tree) -> tuple:
     """(key part, the tensors of ``tree`` in walk order, each once)."""
     tensors: list = []
@@ -94,7 +105,7 @@ def _key(tree, tensors: list, memo: dict):
             return ("tensor", tree.shape, tree.stride(), tree.dtype,
                     tree.device)
         return (type(tree), *(
-            _key(value, tensors, memo) if torch.is_tensor(value) else value
+            _key(value, tensors, memo) if _walked(value) else value
             for _, value in _keyed(tree)))
     if isinstance(tree, tuple):
         return ("tuple", *(_key(t, tensors, memo) for t in tree))
@@ -121,7 +132,7 @@ def _copy(tree, tensors: list, memo: dict):
         else:
             out = replace(tree, **{
                 name: _copy(value, tensors, memo)
-                for name, value in _keyed(tree) if torch.is_tensor(value)})
+                for name, value in _keyed(tree) if _walked(value)})
         memo[id(tree)] = out
         return out
     if isinstance(tree, tuple):

@@ -44,6 +44,13 @@ The spans and counters the port records, and what reads them:
                               (``operator_products``, 2 x degree in the
                               structured polynomial apply); a replayed start
                               or chunk adds what its capture enqueued
+``gmg.setup``                 ``ops.gmg.build_gmg``; children
+                              ``gmg.galerkin`` (the levels' inverse
+                              diagonals and Galerkin coarse operators, the
+                              smoothers' FSAI setups left out) and
+                              ``gmg.root`` (the root's dense assembly,
+                              inverse and symmetrisation), eager or on the
+                              card each around one CUDA graph replay
 ``fsai.setup``                ``neural_fsai_dense_preconditioner``; children
                               ``fsai.forward`` (the model: columns, B1, MLP)
                               and ``fsai.wrap`` (factor or strips, Gram form,

@@ -29,7 +29,7 @@ from deeppreconditioning_tpu_torch.data.poisson import poisson_coeff_dia
 from deeppreconditioning_tpu_torch.models.neural_fsai import (
     neural_fsai_case_plan,
 )
-from deeppreconditioning_tpu_torch.ops import fsai, trisolve
+from deeppreconditioning_tpu_torch.ops import fsai, gmg, trisolve
 from deeppreconditioning_tpu_torch.ops.dia_spmv import dia_matvec
 from deeppreconditioning_tpu_torch.ops.structured_fsai import (
     bands_to_dia,
@@ -82,6 +82,18 @@ def _structured(seed: int, shape, dtype, device=None, degree: int = 1):
     b = torch.zeros(a.n_pad, dtype=dtype)
     b[:a.n] = torch.randn(a.n, generator=gen, dtype=dtype)
     return a, b.to(device), (c_up, c_low, q, a), _APPLIES[degree]
+
+
+def _multigrid(seed: int, shape, dtype, device=None):
+    """(A, b, the V(1,1) damped-Jacobi hierarchy) of a lognormal field."""
+    a = poisson_coeff_dia(shape, rng=np.random.default_rng(seed),
+                          dtype=dtype, device=device)
+    with torch.no_grad():
+        m = gmg.build_gmg(a, shape)
+    gen = torch.Generator().manual_seed(seed)
+    b = torch.zeros(a.n_pad, dtype=dtype)
+    b[:a.n] = torch.randn(a.n, generator=gen, dtype=dtype)
+    return a, b.to(device), m
 
 
 def _eager_twin(fn):
@@ -143,7 +155,8 @@ def test_engagement_rule(name):
 
 @pytest.mark.parametrize("fn", [
     cg.ell_matvec, cg.dense_matvec, cg.identity_apply, dia_matvec,
-    make_structured_poly_apply_dia(0), make_structured_poly_apply_dia(2)])
+    make_structured_poly_apply_dia(0), make_structured_poly_apply_dia(2),
+    gmg.gmg_apply])
 def test_declared_pairs(fn):
     """Every declared callable reads capture-safe; a declared pair on a
     CPU tensor still runs eagerly, for the device alone."""
@@ -219,6 +232,79 @@ def test_key_dia_offsets_and_sharing():
     twin = DIAMatrix(vals=a.vals.clone(), offsets=a.offsets, n=a.n)
     assert _key(dia_matvec, a, b, apply, m[:3] + (twin,)) != base
     assert _key(dia_matvec, a, b, apply, m[:3] + (a,)) == base
+
+
+def _key_before(tree, tensors: list, memo: dict):
+    """The walk as it was before dataclass fields holding dataclasses or
+    tuples of them were walked: a dataclass's tensor fields walked, every
+    other field by value."""
+    from dataclasses import is_dataclass
+
+    if torch.is_tensor(tree) or is_dataclass(tree):
+        if id(tree) in memo:
+            return ("same", memo[id(tree)])
+        memo[id(tree)] = len(memo)
+        if torch.is_tensor(tree):
+            tensors.append(tree)
+            return ("tensor", tree.shape, tree.stride(), tree.dtype,
+                    tree.device)
+        return (type(tree), *(
+            _key_before(value, tensors, memo) if torch.is_tensor(value)
+            else value for _, value in graphs._keyed(tree)))
+    if isinstance(tree, tuple):
+        return ("tuple", *(_key_before(t, tensors, memo) for t in tree))
+    if tree is None:
+        return None
+    raise TypeError(type(tree).__name__)
+
+
+@pytest.mark.parametrize("kind", ["ell", "dia", "range plan",
+                                  "generic plan"])
+def test_todays_trees_keep_their_keys(kind):
+    """The operand trees of the PCG chunk (ELL A, b, dense M; DIA A, b,
+    the structured apply's (C^T, C, q, A)) and of the learned setup (a
+    range or generic plan, the operand, the scales) walk to the keys and
+    the tensors they walked to before the walk recursed."""
+    tree = _operands(kind, 1)
+    tensors: list = []
+    assert graphs.walk(tree) == (_key_before(tree, tensors, {}), tensors)
+
+
+def test_gmg_hierarchy_walk_and_copy():
+    """A multigrid's levels and root are walked and copied: each tensor
+    once (the finest operator is the system's own, so it is walked once),
+    the sharing kept, a second field's tensors copied in make the static
+    tree equal to it, and another depth gives another key."""
+    shape = (32, 32, 32)
+    a, b, m = _multigrid(1, shape, torch.float64)
+    assert len(m.levels) == 2
+    key, leaves = cg._graph_key(dia_matvec, a, b, gmg.gmg_apply, m, 1e-8,
+                                256, 4)
+    hash(key)
+    # A's bands, b, then per level its inverse diagonal (and below the
+    # finest its bands), then the root's inverse
+    assert len(leaves) == 2 + 1 + 2 * (len(m.levels) - 1) + 1
+    assert len({t.data_ptr() for t in leaves}) == len(leaves)
+    (a_s, b_s, m_s), statics = graphs.static_copy((a, b, m))
+    assert m_s.levels[0].a is a_s and a_s.launch_plan is None
+    assert [lev.shape for lev in m_s.levels] == [lev.shape
+                                                 for lev in m.levels]
+    assert graphs.walk((a_s, b_s, m_s)) == graphs.walk((a, b, m))[:1] + (
+        statics,)
+    a2, b2, m2 = _multigrid(2, shape, torch.float64)
+    key2, leaves2 = cg._graph_key(dia_matvec, a2, b2, gmg.gmg_apply, m2,
+                                  1e-8, 256, 4)
+    assert key2 == key
+    for static, value in zip(statics, leaves2):
+        static.copy_(value)
+    for lev_s, lev in zip(m_s.levels, m2.levels):
+        assert torch.equal(lev_s.a.vals, lev.a.vals)
+        assert torch.equal(lev_s.inv_diag, lev.inv_diag)
+    assert torch.equal(m_s.coarse_inv, m2.coarse_inv)
+    small, b3, m3 = _multigrid(1, (16, 16, 16), torch.float64)
+    assert len(m3.levels) == 1
+    assert cg._graph_key(dia_matvec, small, b3, gmg.gmg_apply, m3, 1e-8,
+                         256, 4)[0] != key
 
 
 def test_key_refuses_other_operands():
@@ -409,6 +495,86 @@ def test_graphed_flow_counts_operator_products(rerun_graphs):
     assert graph.products == 3
 
 
+def test_graphed_gmg_flow_matches_eager_and_counts_cycles(rerun_graphs):
+    """Two fields through one key, each equal to its eager solve (a
+    replay over the first field's levels would not be), and under a
+    profiler the V-cycles and operator products the eager loop counts:
+    one cycle (an apply: the start and each executed iteration, which is
+    ``pcg.system_iterations`` plus one a solve) and three products at the
+    start and each iteration."""
+    counts = []
+    for seed in (1, 2):
+        a, b, m = _multigrid(seed, (32, 32, 32), torch.float64)
+        tracing.reset()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = _solve(dia_matvec, a, b, gmg.gmg_apply, m)
+        snap = tracing.snapshot()
+        tracing.reset()
+        want = _solve(_eager_twin(dia_matvec), a, b,
+                      _eager_twin(gmg.gmg_apply), m)
+        _same(got, want)
+        assert 0 < int(got.iterations) < 30
+        applies = 4 * -(-int(got.iterations) // 4) + 1
+        assert snap["counters"]["pcg.system_iterations"] + 1 == applies
+        assert snap["spans"]["pcg.solve"]["calls"] == 1
+        assert snap["counters"]["pcg.operator_products"] == 3 * applies
+        counts.append(snap["counters"].get("pcg.graph_captures", 0))
+    assert counts == [1, 0] and len(rerun_graphs) == 1
+    assert cg.operator_products(gmg.gmg_apply) == 3
+
+
+def _same_hierarchy(got: gmg.GMGPreconditioner,
+                    want: gmg.GMGPreconditioner) -> None:
+    assert [lev.shape for lev in got.levels] == [
+        lev.shape for lev in want.levels]
+    for lev, ref_lev in zip(got.levels, want.levels):
+        assert lev.a.offsets == ref_lev.a.offsets
+        assert torch.equal(lev.a.vals, ref_lev.a.vals)
+        assert torch.equal(lev.inv_diag, ref_lev.inv_diag)
+    assert torch.equal(got.coarse_inv, want.coarse_inv)
+
+
+def test_graphed_gmg_setup_matches_eager(monkeypatch):
+    """Three fields of one grid through the setup's graphs, the capture
+    replaced by a rerun: the first call eager, the second captures, the
+    third replays; each equals its eager setup bit for bit, keeps the
+    caller's fine operator, and holds its own coarse levels (a replay
+    overwrites the graphs' outputs, not an earlier hierarchy)."""
+    shape = (32, 32, 32)
+    fields = [_multigrid(seed, shape, torch.float64) for seed in (1, 2, 3)]
+    rule = graphs.eager_because
+    monkeypatch.setattr(graphs, "eager_because", lambda *args: (
+        None if rule(*args) == "device" else rule(*args)))
+    monkeypatch.setattr(graphs, "capture_graphs", _rerun_capture)
+    gmg.SETUP_GRAPHS.clear()
+    try:
+        got = [gmg.build_gmg(a, shape) for a, _, _ in fields]
+        assert len(gmg.SETUP_GRAPHS) == 1
+        entry = next(iter(gmg.SETUP_GRAPHS.values()))
+    finally:
+        gmg.SETUP_GRAPHS.clear()
+    for m, (a, _, want) in zip(got, fields):
+        _same_hierarchy(m, want)
+        assert m.levels[0].a is a
+        assert m.levels[1].a.vals.data_ptr() != (
+            entry.coarse[0].vals.data_ptr())
+
+
+def test_no_cycles_counted_without_a_multigrid(rerun_graphs):
+    """The solver counts only its own ``pcg.*`` numbers, named after no
+    preconditioner: a V-cycle count is one an apply, read from them."""
+    a, b, m, apply = _structured(1, (6, 5, 4), torch.float64)
+    tracing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _solve(dia_matvec, a, b, apply, m)
+    snap = tracing.snapshot()
+    tracing.reset()
+    assert snap["counters"]["pcg.system_iterations"] > 0
+    assert all(name.startswith("pcg.") for name in snap["counters"])
+
+
 def test_graph_cache_is_bounded(rerun_graphs):
     for check_every in range(1, graphs.GRAPH_KEYS + 3):
         a, b, m = _sludge_like(5, 40, 48, torch.float64)
@@ -505,3 +671,64 @@ def test_cuda_graphed_matches_eager(cuda_device, fresh_graphs):
     assert len(fresh_graphs) == 2
     for got, x in kept:
         assert torch.equal(got.x, x)
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_cuda_graphed_gmg_matches_eager(cuda_device, fresh_graphs):
+    """The multigrid solve on the card: two fields through one key, each
+    graphed solve equal to its eager one bit for bit (a replay over the
+    first field's levels, not copied in, would give the second field the
+    first's cycle), and once the key is captured B2's launch count equal
+    to the eager solve's."""
+    shape = (64, 64, 64)
+    a, b, m = _multigrid(3, shape, torch.float32, cuda_device)
+    _solve(dia_matvec, a, b, gmg.gmg_apply, m, 8)  # captures the key
+    kept = []
+    for seed in (0, 1):
+        a, b, m = _multigrid(seed, shape, torch.float32, cuda_device)
+        _backend.reset_launch_counts()
+        got = _solve(dia_matvec, a, b, gmg.gmg_apply, m, 8)
+        graphed = _backend.launch_counts()["dia_spmv"]
+        _backend.reset_launch_counts()
+        want = _solve(_eager_twin(dia_matvec), a, b,
+                      _eager_twin(gmg.gmg_apply), m, 8)
+        assert graphed == _backend.launch_counts()["dia_spmv"] > 0
+        _same(got, want)
+        assert float(got.residual) < 1e-8
+        kept.append((got, got.x.clone()))
+    assert len(fresh_graphs) == 1
+    assert not torch.equal(kept[0][1], kept[1][1])
+    for got, x in kept:
+        assert torch.equal(got.x, x)
+
+
+@pytest.mark.cuda
+@torch.no_grad()
+def test_cuda_graphed_gmg_setup_matches_eager(cuda_device):
+    """The setup on the card: a key's first call eager, its second
+    captured, the later ones replayed; every hierarchy equal to the eager
+    path's bit for bit, the earlier ones unchanged by the later setups."""
+    shape = (64, 64, 64)
+    lvl_shapes, root_shape = gmg.level_shapes(shape)
+    gmg.SETUP_GRAPHS.clear()
+    kept = []
+    try:
+        for seed in (0, 1, 2, 3):
+            a, _, m = _multigrid(seed, shape, torch.float32, cuda_device)
+            inv_diags, coarse = gmg._galerkin_levels(a, lvl_shapes)
+            want = gmg.GMGPreconditioner(
+                levels=tuple(gmg.GMGLevel(
+                    a=lvl_a, inv_diag=d, c_up=None, c_low=None, shape=s,
+                    omega=gmg.OMEGA) for lvl_a, d, s in zip(
+                        (a, *coarse), inv_diags, lvl_shapes)),
+                coarse_inv=gmg._symmetric_inverse(
+                    gmg._dia_to_dense_static(coarse[-1])),
+                coarse_shape=root_shape)
+            _same_hierarchy(m, want)
+            kept.append((m, want))
+        assert len(gmg.SETUP_GRAPHS) == 1
+    finally:
+        gmg.SETUP_GRAPHS.clear()
+    for m, want in kept:
+        _same_hierarchy(m, want)
