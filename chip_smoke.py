@@ -9,8 +9,8 @@ Phases (each raises on failure):
   2. build: compile and load the CUDA kernels from ``csrc/`` (nvcc, one
      process per source, in parallel); print each source's nvcc time and
      ptxas's registers, stack and spills per kernel instance, and fail on
-     any spill in B1's, B2's, B3's or the Gram assembly's instances but
-     B1's float64 ones,
+     any spill in B1's, B2's, B3's, the Gram assembly's or the PCG
+     iteration's instances but B1's float64 ones,
      whose spills are printed and not refused (SPILL_RECORDED);
   2b. the host runtime (``csrc/host_runtime.cpp``, g++ into
      ``build/torch_host/``): it must build and load (there is no numpy
@@ -63,6 +63,19 @@ Phases (each raises on failure):
      float32 and float64, timed as in phase 3 beside
      ``index_put_(accumulate=True)`` into a zero M and its byte bound;
      the per-case main path (phase 4) must launch it;
+  3f. the PCG iteration's two halves (``csrc/pcg_iteration.cu``, which
+     replaces no TPU kernel: ``update_xr`` and ``update_p`` of
+     ``ops/pcg_iteration.py``) against their plain versions on the same
+     card tensors, at the main paths' n (16 777 216: HPCG's 256^3;
+     2 097 152: 128^3; 1024: the per-case n_pad) in float32 and at 128^3
+     in float64: three trips on a diagonal SPD system from PCG's start,
+     the third frozen at ``max_iter``, x, r, p and the scalars within
+     PCG_RTOL of the dtype (relative, and that times the vector's largest
+     entry), the flags equal, each kernel launch counted; then an
+     iteration timed as in phase 3 (per call, kernel only, the plain
+     version) on a fixed Ap and z, beside ``pcg_iteration_work``'s byte
+     bound (13 n-vectors); the per-case main path (phase 4) must launch
+     it;
   3d. B1's float64 instance against its float64 plain version at w 24, N
      1024 and 131 072, and w 41, N 131 072, within rtol 1e-10 / atol
      1e-12, timed as phase 3 with ``torch.linalg.solve_ex`` in float64 and
@@ -138,10 +151,10 @@ Phases (each raises on failure):
      validation iterations within CONV_ITERS_CASE, their mean within
      CONV_ITERS_MEAN, the validation loss within CONV_VAL_RTOL;
      ``metrics.jsonl`` equal to the epoch's record; ``best.msgpack``
-     read back equal to the model; no kernel launched and no plain
-     version run on the card (the path has no hand-written kernel: its
-     gather-GEMM and its backward, the dense products and the PCG are
-     PyTorch's, as they are XLA's in the reference).  Prints the plan
+     read back equal to the model; no kernel launched but the PCG
+     iteration's and no plain version run on the card (its gather-GEMM
+     and its backward and the dense products are PyTorch's, as they are
+     XLA's in the reference).  Prints the plan
      build seconds (untimed prep), the epoch seconds, the step median /
      min / max, the validation seconds per batch, the plans' bytes on the
      card and the peak memory of the run;
@@ -154,10 +167,10 @@ Phases (each raises on failure):
      and the factor apply for the first.  Per run: the level buckets as
      the JAX reference's, per-case iterations within 2 of the JAX CPU
      float32 counts (``tests/fixtures/torch_port/conv_iterations.json``),
-     the mean within 1%, success equal; no kernel launched and no plain
-     version run on the card (the path has no hand-written kernel: its
-     gather-GEMM, dense products and PCG are PyTorch's, as they are XLA's
-     in the reference); case 0's M (dense) or L values (factor) on the
+     the mean within 1%, success equal; no kernel launched but the PCG
+     iteration's and no plain version run on the card (its gather-GEMM
+     and dense products are PyTorch's, as they are XLA's in the
+     reference); case 0's M (dense) or L values (factor) on the
      card within M_RTOL of the port's CPU float64 setup.  Prints each
      run's setup (forward and M), solve and total medians and the untimed
      plan preparation.  Then, on the factor run's case 0, the two applies
@@ -300,9 +313,9 @@ Phases (each raises on failure):
      ``preconditioned_conjugate_gradient`` on one device with the same
      apply and within the scaling path's bars of the JAX CPU f32 count at
      one shard (``parallel_iterations.json``); the solve timed (median of
-     3, CUDA events) beside the byte model; no kernel in the solves, no
-     plain version; then B1 on the build's real local systems, timed as
-     in phase 3;
+     3, CUDA events) beside the byte model; no kernel in the solves but
+     the one-device solve's PCG iteration, no plain version; then B1 on
+     the build's real local systems, timed as in phase 3;
   4o. the generate stage through its entry point (``python -m
      deeppreconditioning_tpu_torch.generate_data``'s ``run``), the first
      50 cases on each assembly route: on numpy every file equal to the
@@ -438,6 +451,7 @@ from deeppreconditioning_tpu_torch.ops.gram_assembly import (  # noqa: E402
     gram_assembly,
     gram_assembly_torch,
 )
+from deeppreconditioning_tpu_torch.ops import pcg_iteration  # noqa: E402
 from deeppreconditioning_tpu_torch.ops.gmg import (  # noqa: E402
     galerkin_coarse_dia,
 )
@@ -481,6 +495,7 @@ from deeppreconditioning_tpu_torch.utils.profiling import (  # noqa: E402
     fp64_tflop_s,
     gauss_jordan_work,
     gram_assembly_work,
+    pcg_iteration_work,
     time_call,
     time_graph,
 )
@@ -499,7 +514,7 @@ PTXAS_FUNCTION = re.compile(
     r"bytes spill stores, (\d+) bytes spill loads\n[^\n]*?Used (\d+) "
     r"registers")
 NO_SPILL_SOURCES = ("gauss_jordan.cu", "dia_spmv.cu", "bsr_spmm.cu",
-                    "gram_assembly.cu")
+                    "gram_assembly.cu", "pcg_iteration.cu")
 # B1's float64 instances (``gauss_jordan_kernel<double, W, T>``): their
 # spills are printed and counted, not refused (its W 64 holds 130 doubles
 # a thread).
@@ -654,6 +669,18 @@ GJ64_SHAPES = ((1024, 24), (131072, 24), (131072, 41))  # (N, w)
 GJ64_MAIN_SHAPE = (1024, 24)  # a per-case float64 setup's
 GRAM_N_PAD, GRAM_H = 1024, 128  # the per-case cell's Gram assembly
 GJ64_RTOL, GJ64_ATOL = 1e-10, 1e-12
+# The PCG iteration (phase 3f): n and dtype of HPCG's 256^3, 128^3 (also
+# float64, as residual parity's float64 setups solve) and the per-case
+# n_pad; the kernels' record is HPCG's.  Their dots sum in another order
+# than PyTorch's, so x, r, p and the scalars are held to some hundred units
+# of the dtype's rounding, which a float64 instance computing in float32
+# would miss by five orders (tests/test_torch_pcg_iteration.py).
+PCG_SHAPES = ((256 ** 3, torch.float32), (128 ** 3, torch.float32),
+              (128 ** 3, torch.float64), (1024, torch.float32))
+PCG_MAIN = (256 ** 3, torch.float32)
+PCG_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+PCG_TRIPS, PCG_MAX_ITER = 3, 2  # the third trip frozen at max_iter
+PCG_NEVER = 2 ** 31 - 1  # the timed iterations' max_iter: none freezes
 RESIDUAL_FIXTURE = (REPO / "tests" / "fixtures" / "torch_port"
                     / "residual_parity.json")
 RESIDUAL_CASES = 5
@@ -667,6 +694,14 @@ SHARDED_PRECONDS = ("none", "jacobi", "block_jacobi_ic", "fsai")
 SHARDED_REPS = 3
 GENERATE_CASES = 50
 GENERATE_RTOL = 1e-13  # the native assembly's A against the numpy one
+
+
+def other_kernels(launches: dict) -> dict:
+    """The launches of every kernel but the PCG iteration's
+    (``ops/pcg_iteration.py``), which every single-system solve on the
+    card runs."""
+    return {name: n for name, n in launches.items()
+            if n and name != "pcg_iteration"}
 
 
 def card_line() -> str:
@@ -1366,6 +1401,108 @@ def check_gram_assembly(dev, card):
     return records
 
 
+def pcg_start(n, dtype, dev, seed):
+    """PCG's start on a diagonal SPD system, A = diag(a) with a in [1, 10]
+    and M = diag(m) with m in [0.5, 1] (so r shrinks slowly, and the
+    rounding of alpha is not magnified), b standard normal: (the state, a,
+    m)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = 1 + 9 * torch.rand(n, generator=gen, dtype=dtype, device=dev)
+    m = 0.5 + 0.5 * torch.rand(n, generator=gen, dtype=dtype, device=dev)
+    b = torch.randn(n, generator=gen, dtype=dtype, device=dev)
+    s = pcg_iteration.PCGState(b)
+    s.start(b, m * b, torch.dot(b, b),
+            torch.zeros((), dtype=torch.bool, device=dev), PCG_MAX_ITER)
+    return s, a, m
+
+
+def pcg_twin(s):
+    """A second state holding ``s``'s values."""
+    t = pcg_iteration.PCGState(s.x)
+    for name in ("x", "r", "p", "vals", "flags"):
+        getattr(t, name).copy_(getattr(s, name))
+    return t
+
+
+def check_pcg_iteration(dev, card):
+    """Phase 3f: the PCG iteration's halves against their plain versions
+    at PCG_SHAPES, and an iteration timed as in phase 3 beside its byte
+    bound.  Returns the largest abs error and the records by shape."""
+    peaks = card_peaks(torch.cuda.get_device_name(dev))
+    worst, records = 0.0, {}
+    with torch.no_grad():
+        for seed, (n, dtype) in enumerate(PCG_SHAPES):
+            label = (f"pcg_iteration {str(dtype).removeprefix('torch.')} "
+                     f"n {n}")
+            s, a, m = pcg_start(n, dtype, dev, seed)
+            ref = pcg_twin(s)
+            before = _backend.launch_counts()["pcg_iteration"]
+            for _ in range(PCG_TRIPS):
+                pcg_iteration.update_xr(s, a * s.p, 1e-8, PCG_MAX_ITER)
+                pcg_iteration.update_p(s, m * s.r, PCG_MAX_ITER)
+                pcg_iteration.update_xr_torch(ref, a * ref.p, 1e-8,
+                                              PCG_MAX_ITER)
+                pcg_iteration.update_p_torch(ref, m * ref.r, PCG_MAX_ITER)
+            torch.cuda.synchronize()
+            launches = _backend.launch_counts()["pcg_iteration"] - before
+            per = 2 if s.grid == 1 else 4
+            if launches != PCG_TRIPS * per:
+                raise AssertionError(f"{label}: {launches} launches, not "
+                                     f"{PCG_TRIPS * per}")
+            tol, errs = PCG_RTOL[dtype], {}
+            for name in ("x", "r", "p", "vals"):
+                got, want = getattr(s, name), getattr(ref, name)
+                err = (got - want).abs()
+                errs[name] = float(err.max())
+                scale = 0.0 if name == "vals" else float(want.abs().max())
+                if not bool((err <= tol * (want.abs() + scale)).all()):
+                    raise AssertionError(
+                        f"{label}: {name} off its plain version by "
+                        f"{errs[name]:.3e} (rtol {tol})")
+            if s.flags.tolist() != ref.flags.tolist() or s.flags.tolist() != [
+                    PCG_MAX_ITER, 0, 1, 1, 0]:
+                raise AssertionError(f"{label}: flags {s.flags.tolist()}, "
+                                     f"plain {ref.flags.tolist()}")
+            worst = max(worst, *errs.values())
+            # timed on a fixed Ap and z, so no iteration's values decay
+            ap, z = a * s.p, m * s.r
+
+            def fused():
+                pcg_iteration.update_xr(s, ap, 0.0, PCG_NEVER)
+                pcg_iteration.update_p(s, z, PCG_NEVER)
+
+            def plain():
+                pcg_iteration.update_xr_torch(ref, ap, 0.0, PCG_NEVER)
+                pcg_iteration.update_p_torch(ref, z, PCG_NEVER)
+
+            per_call = time_call(fused, dev, reps=20)
+            only = time_graph(fused, dev)
+            plain_s = time_call(plain, dev, reps=20)
+            itemsize = torch.finfo(dtype).bits // 8
+            flop_s = (fp64_tflop_s(torch.cuda.get_device_name(dev))
+                      if dtype == torch.float64 else peaks.fp32_tflop_s)
+            bound, roof = pcg_iteration_work(n, itemsize).bound(
+                peaks.hbm_gb_s, flop_s)
+            records[(n, dtype)] = {
+                "ms": per_call * 1e3, "kernel_only_ms": only * 1e3,
+                "bound_ms": bound * 1e3, "bound_by": roof,
+                "plain_ms": plain_s * 1e3}
+            print(f"{label} ({per} launches an iteration; three trips "
+                  f"against the plain version, max abs err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f"): per call {per_call * 1e3:.4f} ms, kernel only "
+                  f"{only * 1e3:.4f} ms, bound {bound * 1e3:.4f} ms "
+                  f"({roof}), share of bound {bound / only:.3f}; plain "
+                  f"{plain_s * 1e3:.4f} ms [{card}]")
+            if only > per_call * KERNEL_ONLY_SLACK:
+                raise AssertionError(f"{label}: kernel-only "
+                                     f"{only * 1e3:.4f} ms exceeds per "
+                                     f"call {per_call * 1e3:.4f} ms")
+            del s, ref, a, m, ap, z
+            torch.cuda.empty_cache()
+    return worst, records
+
+
 def run_roofline_path(dev, card, operators):
     """Phase 3c, path half: the roofline entry point's two sections with
     the launch counts zeroed just before and read just after; writes the
@@ -1900,7 +2037,7 @@ def check_conv_path(cases, card):
         if ref["learned_apply"] == "factor" and (
                 list(suite._learned_widths()) != models["final_widths"]):
             failures.append(f"{run}: factor widths differ")
-        if any(run_launches.values()) or any(plain.values()):
+        if other_kernels(run_launches) or any(plain.values()):
             failures.append(f"{run}: launches {run_launches}, plain "
                             f"versions on the card {plain}")
         for name, count in run_launches.items():
@@ -2273,7 +2410,7 @@ def check_conv_training(cases, card):
               f" plain versions on the card {plain}")
         if not vrel <= CONV_VAL_RTOL:
             failures.append(f"{model}: validation loss off by {vrel}")
-        if any(run_launches.values()) or any(plain.values()):
+        if other_kernels(run_launches) or any(plain.values()):
             failures.append(f"{model}: a kernel or a plain version ran")
         logged = [json.loads(line) for line in
                   (out / "metrics" / "metrics.jsonl").read_text()
@@ -2655,7 +2792,8 @@ def run_large_solve(card):
     """Phase 4j: the matrix-free 256^3 CG through its entry point's
     function (``python -m deeppreconditioning_tpu_torch.bench.large_solve``):
     the reference's line; a finite x, and converged unless it ran to
-    ``max_iter``.  No kernel: the stencil is plain PyTorch."""
+    ``max_iter``.  No kernel but the PCG iteration's: the stencil is
+    plain PyTorch."""
     _backend.reset_launch_counts()
     t0 = time.perf_counter()
     res = large_solve(LARGE_GRID)
@@ -2666,7 +2804,8 @@ def run_large_solve(card):
             res.residual < 1e-8 or res.iterations == 1024):
         raise AssertionError(f"large solve: residual {res.residual} after "
                              f"{res.iterations} iterations")
-    if any(launches.values()) or any(_backend.plain_cuda_counts().values()):
+    if other_kernels(launches) or any(
+            _backend.plain_cuda_counts().values()):
         raise AssertionError("the stencil solve ran a kernel or a plain "
                              "version")
     return launches
@@ -2841,7 +2980,8 @@ def check_sharded_solver(dev, card):
                                     f"{one}, JAX {want})")
                 del solve
         solves = _backend.launch_counts()
-        if any(solves.values()) or any(_backend.plain_cuda_counts().values()):
+        if other_kernels(solves) or any(
+                _backend.plain_cuda_counts().values()):
             failures.append(f"the solves ran a kernel or a plain version: "
                             f"{solves}, {_backend.plain_cuda_counts()}")
         hold_host("sharded", ("ic0",))
@@ -2937,7 +3077,8 @@ def check_generate(card):
 def build_report(build_s):
     """Phase 2's record: the build's wall time, each source's nvcc time,
     and ptxas's registers and spills per kernel instance; fails on any
-    spill in B1's, B2's, B3's or the Gram assembly's instances."""
+    spill in B1's, B2's, B3's, the Gram assembly's or the PCG iteration's
+    instances."""
     print(f"build: {build_s:.1f} s (0 if cached); nvcc per source "
           + ", ".join(f"{src} {s:.1f} s"
                       for src, s in sorted(_backend.build_seconds.items())))
@@ -2986,6 +3127,9 @@ def main() -> None:
     # 3e. the Gram slabs' assembly
     gram_times = check_gram_assembly(dev, card)
 
+    # 3f. the PCG iteration's halves
+    pcg_err, pcg_times = check_pcg_iteration(dev, card)
+
     # 3d. B1's float64 instance
     t0 = time.perf_counter()
     gj64_err, gj64_times = check_gauss_jordan_f64(dev, card)
@@ -3006,6 +3150,7 @@ def main() -> None:
     suite = run_main_path(dev, results_directory=RESULTS, cases=cases)
     launches = _backend.launch_counts()["gauss_jordan"]
     gram_launches = _backend.launch_counts()["gram_assembly"]
+    pcg_launches = _backend.launch_counts()["pcg_iteration"]
     hold_host("per-case", ("ic0", "levels"))
     plain = _backend.plain_cuda_counts()
     wall_s = time.perf_counter() - t0
@@ -3029,6 +3174,11 @@ def main() -> None:
           f"a range-plan fsai or learned setup, graph replays included)")
     if gram_launches == 0:
         raise AssertionError("main path did not run the Gram assembly")
+    print(f"PCG iteration launches on the main path: {pcg_launches} (two "
+          f"an executed iteration at n_pad {suite.data_set.dof_pad}, "
+          f"graph replays included)")
+    if pcg_launches == 0:
+        raise AssertionError("main path did not run the PCG iteration")
     if any(plain.values()):
         raise AssertionError("the main path ran a plain version on the card")
 
@@ -3164,7 +3314,8 @@ def main() -> None:
 
     # 5. records
     paths = {"per-case": {"gauss_jordan": launches,
-                          "gram_assembly": gram_launches},
+                          "gram_assembly": gram_launches,
+                          "pcg_iteration": pcg_launches},
              "train": train_launches, "train-dp": dp_launches,
              "dryrun": dryrun_launches, "conv": conv_launches,
              "conv-train": conv_train_launches,
@@ -3227,6 +3378,15 @@ def main() -> None:
         "launches": sum(c.get("gram_assembly", 0) for c in paths.values()),
         "max_abs_err": 0.0,
         **gram_times[torch.float32],
+    }, {
+        "name": "pcg_iteration",
+        "route": "cuda",
+        "source": "deeppreconditioning_tpu_torch/csrc/pcg_iteration.cu",
+        "replaces": "none (the PyTorch ops of the masked iteration in "
+                    "deeppreconditioning_tpu_torch/solvers/cg.py)",
+        "launches": sum(c.get("pcg_iteration", 0) for c in paths.values()),
+        "max_abs_err": pcg_err,
+        **pcg_times[PCG_MAIN],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

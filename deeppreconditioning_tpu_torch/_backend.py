@@ -52,7 +52,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("gauss_jordan", "dia_spmv", "bsr_spmm", "gram_assembly")
+KERNELS = ("gauss_jordan", "dia_spmv", "bsr_spmm", "gram_assembly",
+           "pcg_iteration")
 HOST_SOURCE = CSRC / "host_runtime.cpp"
 HOST_BUILD_DIR = BUILD_DIR.parent / "torch_host"
 # -ffp-contract=off: no fused multiply-add, so a factor rounds as numpy's
@@ -268,6 +269,16 @@ def kernel_library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         entry.restype = ctypes.c_int
+    # the PCG iteration's two halves (ops/pcg_iteration.py): vectors,
+    # scalars, n, grid, max_iter (and rtol), the stream; per iteration,
+    # so they keep the GIL as B2 does
+    vec = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+    for dt in ("f32", "f64"):
+        setattr(lib, f"dp_pcg_xr_{dt}", ctypes.PYFUNCTYPE(
+            ctypes.c_int, *vec, ctypes.c_double, ctypes.c_void_p)(
+                (f"dp_pcg_xr_{dt}", lib)))
+        setattr(lib, f"dp_pcg_p_{dt}", ctypes.PYFUNCTYPE(
+            ctypes.c_int, *vec[1:], ctypes.c_void_p)((f"dp_pcg_p_{dt}", lib)))
     _library = lib
     return lib
 

@@ -9,18 +9,27 @@ Numeric contract of ``deeppreconditioning_tpu/solvers/cg.py``:
   * the convergence check is seeded with ``r``.
 
 The loop runs ``check_every`` masked iterations per chunk, all on the
-device (``torch.where`` freezes the state once done), and reads ``done``
-on the host once per chunk.  Iteration counts are exact per iteration,
-not rounded to chunks.  Under a ``torch.profiler`` the two chunked
-solvers record the spans ``pcg.solve``, ``pcg.chunk`` and ``pcg.read``
-and count the iterations they execute, masked ones included, in
-``pcg.system_iterations``, and the products with the system's operator
-they enqueue in ``pcg.operator_products`` (``utils/tracing.py``): one
-an iteration and at the start, and those the preconditioner makes, as
-``apply_m`` declares them (``operator_products``).  ``pcg_fixed_trips``
-runs the same masked iteration a fixed number of times with no host read
-at all, so its counts equal the chunked solver's whenever ``trips``
-covers the solve.
+device (the state freezes once done, or at ``max_iter``), and reads
+``done | k >= max_iter`` on the host once per chunk.  Iteration counts
+are exact per iteration, not rounded to chunks.  An iteration's vector
+and scalar work around ``matvec`` and ``apply_m`` is
+``ops.pcg_iteration``'s two halves on a ``PCGState``: on the card their
+hand-written kernels, in place (four launches an iteration, two at small
+n); on the CPU, and in a solve under grad mode whose start needs a
+gradient (an operand that requires one), their plain versions, the same
+ops as before the fusion on fresh tensors, which give the solver's CPU
+results their bits and which autograd follows.  Under a
+``torch.profiler`` the two chunked solvers record the spans
+``pcg.solve``, ``pcg.chunk`` and ``pcg.read`` and count the iterations
+they execute, masked ones included, in ``pcg.system_iterations``, those
+of them off the autograd route in ``pcg.fused_iterations``, and the
+products with the system's operator they enqueue in
+``pcg.operator_products`` (``utils/tracing.py``): one an iteration and
+at the start, and those the preconditioner makes, as ``apply_m``
+declares them (``operator_products``).  ``pcg_fixed_trips`` runs the
+same masked iteration a fixed number of times with no host read at all,
+so its counts equal the chunked solver's whenever ``trips`` covers the
+solve.
 
 On a CUDA device ``preconditioned_conjugate_gradient`` replays the chunk
 from CUDA graphs (``utils/graphs.py``) where ``matvec`` and ``apply_m``
@@ -33,8 +42,8 @@ the eager loop.  The key adds the two callables, ``rtol``, ``max_iter``
 and ``check_every`` to the walk of ``(a_data, b, m_data)`` (a multigrid's
 levels and root included) and is captured on its first call.  The stages
 are the start and one chunk of ``check_every`` masked iterations over a
-static x, r, z, p, k, done, b.b and ``done | k >= max_iter``: a solve
-replays the start, then per chunk reads the last on the host and replays
+static ``PCGState``, which the kernels update in place: a solve replays
+the start, then per chunk reads its stop flag on the host and replays
 the chunk, and returns fresh copies of x, the count and the residual.
 The spans stay outside the graphs; each replay counts the operator
 products its capture enqueued, and the graphed solve counts
@@ -57,12 +66,12 @@ them until ``done`` reads true at a chunk's end);
 
 from __future__ import annotations
 
-import functools
 import time
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from deeppreconditioning_tpu_torch.ops import pcg_iteration
 from deeppreconditioning_tpu_torch.utils import graphs
 from deeppreconditioning_tpu_torch.utils.graphs import capture_safe
 from deeppreconditioning_tpu_torch.utils.tracing import count, span
@@ -119,24 +128,25 @@ def _pcg_start(matvec, a_data, b, apply_m, m_data, rtol):
     return _PCGState(x, r, z, z, k, torch.dot(r, r) / bb < rtol), bb
 
 
-def _masked_iteration(matvec, a_data, apply_m, m_data, s: _PCGState, bb,
-                      rtol, max_iter) -> _PCGState:
-    """One PCG iteration, frozen by ``torch.where`` once done (or at
-    ``max_iter``)."""
-    frozen = s.done | (s.k >= max_iter)
-    zero = torch.zeros((), dtype=s.r.dtype, device=s.r.device)
-    ap = matvec(a_data, s.p)
-    rz = torch.dot(s.r, s.z)
-    denom = torch.dot(ap, s.p)
-    alpha = torch.where(frozen, zero, rz / denom)
-    x = s.x + alpha * s.p
-    r_new = torch.where(frozen, s.r, s.r - alpha * ap)
-    z_new = torch.where(frozen, s.z, apply_m(m_data, r_new))
-    beta = torch.where(frozen, zero, torch.dot(r_new, z_new) / rz)
-    p = torch.where(frozen, s.p, z_new + beta * s.p)
-    k = torch.where(frozen, s.k, s.k + 1)
-    done = s.done | (torch.dot(r_new, r_new) / bb < rtol)
-    return _PCGState(x, r_new, z_new, p, k, done)
+def _state(s: _PCGState, bb, max_iter) -> pcg_iteration.PCGState:
+    """The iteration's state from the start ``s``."""
+    state = pcg_iteration.PCGState(s.r)
+    state.start(s.r, s.z, bb, s.done, max_iter)
+    return state
+
+
+def _iteration(matvec, a_data, apply_m, m_data, s: pcg_iteration.PCGState,
+               rtol, max_iter) -> None:
+    """One PCG iteration into ``s``, frozen once done (or at
+    ``max_iter``): ``ops.pcg_iteration``'s halves around the product and
+    the apply."""
+    pcg_iteration.update_xr(s, matvec(a_data, s.p), rtol, max_iter)
+    pcg_iteration.update_p(s, apply_m(m_data, s.r), max_iter)
+
+
+def _result(s: pcg_iteration.PCGState) -> CGResult:
+    return CGResult(x=s.x, iterations=s.k.clone(),
+                    residual=s.residual.clone())
 
 
 def preconditioned_conjugate_gradient(
@@ -162,19 +172,27 @@ def preconditioned_conjugate_gradient(
         products = operator_products(apply_m)
         s, bb = _pcg_start(matvec, a_data, b, apply_m, m_data, rtol)
         count("pcg.operator_products", products)
+        state = _state(s, bb, max_iter)
+        fused = not pcg_iteration.needs_autograd(state)
         while True:
             with span("pcg.read", dev):
-                running = not bool(s.done | (s.k >= max_iter))
+                running = not bool(state.stop)
             if not running:
                 break
             with span("pcg.chunk", dev):
                 for _ in range(check_every):
-                    s = _masked_iteration(matvec, a_data, apply_m, m_data, s,
-                                          bb, rtol, max_iter)
-            count("pcg.system_iterations", check_every)
-            count("pcg.operator_products", check_every * products)
-        return CGResult(x=s.x, iterations=s.k,
-                        residual=torch.dot(s.r, s.r) / bb)
+                    _iteration(matvec, a_data, apply_m, m_data, state, rtol,
+                               max_iter)
+            _count_chunk(check_every, products, fused)
+        return _result(state)
+
+
+def _count_chunk(check_every: int, products: int, fused: bool) -> None:
+    """The counters of one chunk of the single-system solver."""
+    count("pcg.system_iterations", check_every)
+    count("pcg.operator_products", check_every * products)
+    if fused:
+        count("pcg.fused_iterations", check_every)
 
 
 def _eager_because(matvec, apply_m, leaves) -> str | None:
@@ -209,12 +227,7 @@ class _ChunkGraph(graphs.GraphEntry):
         self.matvec, self.apply_m = matvec, apply_m
         self.products = operator_products(apply_m)
         self.rtol, self.max_iter, self.check_every = rtol, max_iter, check_every
-        scalar = functools.partial(torch.empty, (), device=b.device)
-        self.state = _PCGState(
-            *(torch.empty_like(b) for _ in range(4)),
-            scalar(dtype=torch.int32), scalar(dtype=torch.bool))
-        self.bb = scalar(dtype=b.dtype)
-        self.stop = scalar(dtype=torch.bool)
+        self.state = pcg_iteration.PCGState(self.b)
         self.load(leaves)
         _, self.graphs = graphs.capture_graphs(self.device, self._warm,
                                                self._start, self._chunk)
@@ -222,27 +235,20 @@ class _ChunkGraph(graphs.GraphEntry):
 
     def _warm(self) -> None:
         self._start()
-        _masked_iteration(self.matvec, self.a, self.apply_m, self.m,
-                          self.state, self.bb, self.rtol, self.max_iter)
-
-    def _store(self, s: _PCGState, bb=None) -> None:
-        for static, value in zip(self.state, s):
-            static.copy_(value)
-        if bb is not None:
-            self.bb.copy_(bb)
-        self.stop.copy_(s.done | (s.k >= self.max_iter))
+        self._iteration()
 
     def _start(self) -> None:
         s, bb = _pcg_start(self.matvec, self.a, self.b, self.apply_m,
                            self.m, self.rtol)
-        self._store(s, bb)
+        self.state.start(s.r, s.z, bb, s.done, self.max_iter)
+
+    def _iteration(self) -> None:
+        _iteration(self.matvec, self.a, self.apply_m, self.m, self.state,
+                   self.rtol, self.max_iter)
 
     def _chunk(self) -> None:
-        s = self.state
         for _ in range(self.check_every):
-            s = _masked_iteration(self.matvec, self.a, self.apply_m, self.m,
-                                  s, self.bb, self.rtol, self.max_iter)
-        self._store(s)
+            self._iteration()
 
     def solve(self, leaves) -> CGResult:
         """The chunked solve of operands ``leaves`` (``_graph_key``'s)."""
@@ -253,17 +259,15 @@ class _ChunkGraph(graphs.GraphEntry):
         count("pcg.operator_products", self.products)
         while True:
             with span("pcg.read", dev):
-                running = not bool(self.stop)
+                running = not bool(self.state.stop)
             if not running:
                 break
             with span("pcg.chunk", dev):
                 chunk.replay()
             count("pcg.graph_chunks")
-            count("pcg.system_iterations", self.check_every)
-            count("pcg.operator_products", self.check_every * self.products)
-        s = self.state
-        return CGResult(x=s.x.clone(), iterations=s.k.clone(),
-                        residual=torch.dot(s.r, s.r) / self.bb)
+            _count_chunk(self.check_every, self.products, fused=True)
+        result = _result(self.state)
+        return result._replace(x=result.x.clone())
 
 
 _graphs = graphs.GraphCache()  # key -> _ChunkGraph, captured at once
@@ -283,10 +287,12 @@ def pcg_fixed_trips(
     the same iterations, count and x as the chunked solver when ``trips``
     covers the solve."""
     s, bb = _pcg_start(matvec, a_data, b, apply_m, m_data, rtol)
+    state = _state(s, bb, max_iter)
+    if not pcg_iteration.needs_autograd(state):
+        count("pcg.fused_iterations", trips)
     for _ in range(trips):
-        s = _masked_iteration(matvec, a_data, apply_m, m_data, s, bb, rtol,
-                              max_iter)
-    return CGResult(x=s.x, iterations=s.k, residual=torch.dot(s.r, s.r) / bb)
+        _iteration(matvec, a_data, apply_m, m_data, state, rtol, max_iter)
+    return _result(state)
 
 
 def pcg_sequence_fixed_trips(

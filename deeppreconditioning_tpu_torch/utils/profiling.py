@@ -20,8 +20,8 @@ bound (``KernelWork.bound``) is the least time the card could take for the
 same work: the larger of its minimum bytes over the HBM bandwidth and its
 flops over the peak of the units it runs on (float32 outside the tensor
 cores, or 3xTF32 on them; float64 outside them, ``fp64_tflop_s``);
-``gauss_jordan_work``, ``dia_work``, ``bsr_work`` and
-``gram_assembly_work`` count the bytes and flops that the inputs need.
+``gauss_jordan_work``, ``dia_work``, ``bsr_work``, ``gram_assembly_work``
+and ``pcg_iteration_work`` count the bytes and flops that the inputs need.
 """
 
 from __future__ import annotations
@@ -244,6 +244,14 @@ def gram_assembly_work(b: int, h: int, n_pad: int,
     slab entry."""
     return KernelWork(bytes=itemsize * (b * h * h + n_pad * n_pad) + 8 * b,
                       flops=b * h * h)
+
+
+def pcg_iteration_work(n: int, itemsize: int = 4) -> KernelWork:
+    """The fused PCG iteration's vector work on n-vectors (its scalars
+    aside): p.Ap reads 2; x and r with r.r read 4, write 2; r.z reads 2;
+    p = z + beta p reads 2, writes 1: 13 passes.  Flops: 2n a dot (3 dots),
+    2n an axpy (3)."""
+    return KernelWork(bytes=13 * n * itemsize, flops=12 * n)
 
 
 @dataclass

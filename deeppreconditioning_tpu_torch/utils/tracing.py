@@ -32,6 +32,10 @@ The spans and counters the port records, and what reads them:
                               last included)
 ``pcg.system_iterations``     counter: systems x ``check_every`` per chunk,
                               the iterations executed, masked or not
+``pcg.fused_iterations``      counter: ``check_every`` per chunk of the
+                              single-system solver that ran through
+                              ``ops.pcg_iteration`` (eager or replayed),
+                              ``trips`` per ``pcg_fixed_trips`` solve
 ``pcg.graph_chunks``          counter: the single-system solver's chunks
                               replayed from a CUDA graph (each also a
                               ``pcg.chunk`` span)
